@@ -1,0 +1,73 @@
+"""Batched detector: host preprocessing, then backbone -> head -> decode ->
+Matrix-NMS on the device with one [B, keep_top_k, 6] copy back.
+
+Counterpart of ``ppyolo_tpu/eval/detector.py::Detector``.  Images travel to
+the device as uint8 NHWC and are normalized there; the NHWC batch viewed as
+NCHW is ``channels_last``, so no layout copy happens.  Runs eagerly.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..ops.module import resolve_device
+from .optimize import COMPUTE_DTYPES, optimize_for_inference
+
+
+class Detector:
+    def __init__(self, model, state_dict, cfg, *, target_size: Optional[int] = None,
+                 precision: str = "fp32", fold_bn: bool = True, device=None):
+        """``state_dict`` uses the port's keys (the JAX param paths), fp32.
+        ``device`` defaults to ``cuda`` and raises if there is no card."""
+        self.device = resolve_device(device)
+        self.compute_dtype = COMPUTE_DTYPES[precision]
+        sd = optimize_for_inference(state_dict, precision=precision, fold_bn=fold_bn)
+        self.model = model.to(device=self.device, dtype=self.compute_dtype,
+                              memory_format=torch.channels_last).eval()
+        self.model.load_state_dict(sd)
+        self.target_size = int(target_size or cfg.test_cfg["target_size"])
+        mean = np.array(cfg.normalizeImage["mean"], np.float32)
+        std = np.array(cfg.normalizeImage["std"], np.float32)
+        self.interp = int(cfg.resizeImage.get("interp", 2))
+        self.is_scale = bool(cfg.normalizeImage.get("is_scale", True))
+        self.to_bgr = bool(cfg.permute.get("to_bgr", False))
+        if self.to_bgr:
+            # the channels flip before the uint8 ship, so the constants flip too
+            mean, std = mean[::-1].copy(), std[::-1].copy()
+        self.mean = torch.from_numpy(mean).to(self.device).view(1, 3, 1, 1)
+        self.std = torch.from_numpy(std).to(self.device).view(1, 3, 1, 1)
+
+    def process_image(self, img_bgr: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """BGR->RGB + uint8 cv2 resize on the host (reference decode_np.py:125-140)."""
+        import cv2
+
+        im = cv2.cvtColor(img_bgr, cv2.COLOR_BGR2RGB)
+        h, w = im.shape[:2]
+        ts = self.target_size
+        im = cv2.resize(im, (ts, ts), interpolation=self.interp)
+        if self.to_bgr:
+            im = im[..., ::-1]
+        return im[None], np.array([[h, w]], np.float32)
+
+    def normalize(self, images: torch.Tensor) -> torch.Tensor:
+        """[B,S,S,3] uint8 (or normalized float) NHWC -> [B,3,S,S] in the
+        compute dtype, channels_last; op-for-op the JAX ``_normalize``."""
+        x = images.permute(0, 3, 1, 2)
+        if x.dtype == torch.uint8:
+            x = x.float()
+            if self.is_scale:
+                x = x / 255.0
+            x = (x - self.mean) / self.std
+        return x.to(self.compute_dtype)
+
+    @torch.no_grad()
+    def predict_batch(self, pimages: np.ndarray, im_sizes: np.ndarray) -> np.ndarray:
+        """pimages [B,S,S,3] preprocessed; im_sizes [B,2] (h, w).
+        Returns [B, keep_top_k, 6] numpy (label, score, x0, y0, x1, y1)."""
+        images = torch.from_numpy(np.ascontiguousarray(pimages)).to(
+            self.device, non_blocking=True)
+        sizes = torch.from_numpy(np.asarray(im_sizes, np.float32)).to(self.device)
+        out = self.model.predict(self.normalize(images), sizes)
+        return out.cpu().numpy()

@@ -1,0 +1,148 @@
+"""YOLOv3 FPN head with the PP-YOLO tricks, eval mode.
+
+Counterpart of ``ppyolo_tpu/models/head.py`` (``DetectionBlock``,
+``YOLOv3Head.get_outputs`` / ``get_prediction``): CoordConv, SPP on the
+first block, transition 1x1 + nearest 2x upsample + route concat, the
+IoU-aware decode and batched Matrix-NMS.  The paramless CoordConv / SPP /
+DropBlock slots consume ``layers`` indices, so the keys match the JAX
+param tree (``detection_blocks.0.layers.1.conv.weight``).  Every concat is
+materialized with ``torch.cat``; the JAX package's virtual concat
+(``HEAD_DECOMPOSE``) is a TPU layout optimisation not ported yet.
+DropBlock is a training-time op and is the identity here.
+"""
+from __future__ import annotations
+
+from typing import List
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..ops.blocks import coord_conv, spp, upsample_nearest_2x
+from ..ops.conv import ConvNormAct
+from ..ops.matrix_nms import matrix_nms
+from ..ops.yolo_box import yolo_box_serving
+
+
+class DetectionBlock(nn.Module):
+    """One FPN level body (reference head.py:146-239)."""
+
+    def __init__(self, in_c, channel, *, coord=True, norm="bn", conv_block_num=2,
+                 is_first=False, use_spp=True, drop_blk=True):
+        super().__init__()
+        assert channel % 2 == 0
+        self.coord = coord
+        seq = []                       # (kind, key): coord | conv | spp | drop
+        layers = {}
+
+        def add(kind, mod=None):
+            key = str(len(seq))
+            if mod is not None:
+                layers[key] = mod
+            seq.append((kind, key))
+
+        c = in_c
+        for j in range(conv_block_num):
+            add("coord")
+            add("conv", ConvNormAct(c + 2 if coord else c, channel, 1, norm=norm,
+                                    act="leaky"))
+            if use_spp and is_first and j == 1:
+                add("spp")
+                add("conv", ConvNormAct(channel * 4, 512, 1, norm=norm, act="leaky"))
+                add("conv", ConvNormAct(512, channel * 2, 3, norm=norm, act="leaky"))
+            else:
+                add("conv", ConvNormAct(channel, channel * 2, 3, norm=norm, act="leaky"))
+            if drop_blk and j == 0 and not is_first:
+                add("drop")
+            c = channel * 2
+        if drop_blk and is_first:
+            add("drop")
+        add("coord")
+        cc = c if conv_block_num == 0 else channel * 2
+        add("conv", ConvNormAct(cc + 2 if coord else cc, channel, 1, norm=norm,
+                                act="leaky"))
+        self.seq = seq
+        self.layers = nn.ModuleDict(layers)
+        self.tip_layers = nn.ModuleDict({"1": ConvNormAct(
+            channel + 2 if coord else channel, channel * 2, 3, norm=norm, act="leaky")})
+
+    def forward(self, x):
+        for kind, key in self.seq:
+            if kind == "coord" and self.coord:
+                x = coord_conv(x)
+            elif kind == "conv":
+                x = self.layers[key](x)
+            elif kind == "spp":
+                x = spp(x)
+        route = x
+        tip = self.tip_layers["1"](coord_conv(route) if self.coord else route)
+        return route, tip
+
+
+class YOLOv3Head(nn.Module):
+    """Reference YOLOv3Head (head.py:242-469), eval mode."""
+
+    def __init__(self, num_classes=80, conv_block_num=2,
+                 anchors=((10, 13), (16, 30), (33, 23), (30, 61), (62, 45), (59, 119),
+                          (116, 90), (156, 198), (373, 326)),
+                 anchor_masks=((6, 7, 8), (3, 4, 5), (0, 1, 2)), norm_type="bn",
+                 coord_conv=True, iou_aware=True, iou_aware_factor=0.4,
+                 scale_x_y=1.05, spp=True, drop_block=True, clip_bbox=True,
+                 downsample=(32, 16, 8), in_channels=(2048, 1024, 512),
+                 nms_cfg=None, **_training_only):
+        super().__init__()
+        self.num_classes = num_classes
+        self.anchors = np.asarray(anchors, np.float32)
+        self.anchor_masks = [list(m) for m in anchor_masks]
+        self.iou_aware = iou_aware
+        self.iou_aware_factor = iou_aware_factor
+        self.scale_x_y = scale_x_y
+        self.clip_bbox = clip_bbox
+        self.downsample = list(downsample)
+        self.nms_cfg = dict(nms_cfg or {})
+        if self.nms_cfg.get("nms_type", "matrix_nms") != "matrix_nms":
+            raise NotImplementedError("only matrix_nms is ported")
+        self.n_levels = n = len(downsample)
+        blocks, outs, trans = [], [], {}
+        for i in range(n):
+            in_c = in_channels[i] + (512 // (2 ** i) if i > 0 else 0)
+            channel = 64 * (2 ** n) // (2 ** i)
+            blocks.append(DetectionBlock(in_c, channel, coord=coord_conv, norm=norm_type,
+                                         conv_block_num=conv_block_num, is_first=i == 0,
+                                         use_spp=spp, drop_blk=drop_block))
+            an = len(self.anchor_masks[i])
+            nf = an * (num_classes + 6) if iou_aware else an * (num_classes + 5)
+            outs.append(ConvNormAct(channel * 2, nf, 1, bias=True, act=None))
+            if i < n - 1:
+                trans[str(2 * i)] = ConvNormAct(channel, 256 // (2 ** i), 1,
+                                                norm=norm_type, act="leaky")
+        self.detection_blocks = nn.ModuleList(blocks)
+        self.yolo_output_convs = nn.ModuleList(outs)
+        self.upsample_layers = nn.ModuleDict(trans)
+
+    def get_outputs(self, body_feats: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Top-down pathway; raw per-level maps, level 0 the coarsest."""
+        outputs = []
+        route = None
+        for i, block in enumerate(body_feats[::-1][: self.n_levels]):
+            if i > 0:
+                block = torch.cat([route, block], dim=1)
+            route, tip = self.detection_blocks[i](block)
+            outputs.append(self.yolo_output_convs[i](tip))
+            if i < self.n_levels - 1:
+                route = upsample_nearest_2x(self.upsample_layers[str(2 * i)](route))
+        return outputs
+
+    def get_prediction(self, body_feats: List[torch.Tensor],
+                       im_size: torch.Tensor) -> torch.Tensor:
+        """Decode + IoU-aware fuse + batched Matrix-NMS -> [B, keep_top_k, 6]."""
+        boxes, scores = [], []
+        for i, out in enumerate(self.get_outputs(body_feats)):
+            b, s = yolo_box_serving(
+                out, torch.from_numpy(self.anchors[self.anchor_masks[i]]),
+                self.downsample[i], self.num_classes, self.scale_x_y, im_size,
+                self.clip_bbox,
+                iou_aware_factor=self.iou_aware_factor if self.iou_aware else None)
+            boxes.append(b)
+            scores.append(s)
+        return matrix_nms(boxes, scores, self.nms_cfg)

@@ -1,0 +1,127 @@
+"""The ResNet-vd deep stem and its fused Hopper kernel (``csrc/fused_stem.cu``).
+
+Counterpart of ``ppyolo_tpu/ops/stem_pallas.py``.  In eval mode with bf16
+compute the three stem ConvNormActs (3->32/s2, 32->32, 32->64, BN, relu)
+and the 3x3/s2/p1 max-pool run as one kernel; otherwise (fp32, training)
+the unfused chain runs, as ``ppyolo_tpu/models/resnet_vd.py:37-39`` does.
+
+``fused_stem_plain`` is the kernel's plain version and repeats its
+arithmetic: each conv accumulates in fp32 over bf16-valued operands, adds
+the fp32 bias, applies relu and rounds to the compute dtype; then the
+max-pool.  At fp32 it is the unfused op chain
+(``stem_pallas.py::fused_stem_reference``).  ``fused_stem.launches`` counts
+the kernel's launches.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+from .blocks import max_pool2d
+from .module import BN_EPS
+
+STEM_SHAPES = [(3, 32, 2), (32, 32, 1), (32, 64, 1)]  # (cin, cout, stride)
+
+
+def fold_eval_bn(mod) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Eval-mode conv+BN of one stem ConvNormAct as (w_eff in the weight's
+    dtype, b_eff fp32): w' = w * scale/sqrt(var+eps),
+    b' = bias - mean * scale/sqrt(var+eps) (+ conv bias)."""
+    w = mod.conv.weight
+    bn = mod.bn
+    k = bn.weight.float() * torch.rsqrt(bn.running_var.float() + BN_EPS)
+    w_eff = (w.float() * k.view(-1, 1, 1, 1)).to(w.dtype)
+    b_eff = bn.bias.float() - bn.running_mean.float() * k
+    if mod.conv.bias is not None:
+        b_eff = b_eff + mod.conv.bias.float()
+    return w_eff, b_eff
+
+
+def stem_eligible(mods: Sequence, x: torch.Tensor) -> bool:
+    """Can the fused kernel replace these three stem ConvNormActs?  Eval
+    mode, bf16, three 3x3 convs 3->32/s2, 32->32, 32->64 with BN and relu.
+    Any image size: the kernel masks its own ragged tiles."""
+    if x.dtype != torch.bfloat16 or any(m.training for m in mods):
+        return False
+    for m, (cin, cout, stride) in zip(mods, STEM_SHAPES):
+        if (m.bn is None or m.use_dcn or m.ksize != 3 or m.act != "relu"
+                or (m.cin, m.cout, m.stride) != (cin, cout, stride)):
+            return False
+    return len(mods) == 3
+
+
+def fused_stem_plain(x, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
+    """Plain version of the fused stem.  x [N,3,H,W] in the compute dtype;
+    w_i OIHW with BN folded, b_i fp32.  Returns [N,64,S/4,S/4]."""
+    dt = x.dtype
+    y = x
+    for w, b, s in ((w1, b1, 2), (w2, b2, 1), (w3, b3, 1)):
+        acc = F.conv2d(y.float(), w.to(dt).float(), stride=s, padding=1)
+        y = F.relu(acc + b.float().view(1, -1, 1, 1)).to(dt)
+    return max_pool2d(y, 3, 2, 1)
+
+
+def _lib():
+    lib = _build.load("fused_stem")
+    lib.fused_stem_launch.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.fused_stem_launch.restype = ctypes.c_int
+    return lib
+
+
+def fused_stem(x, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
+    """The fused stem on x's device: the plain version for a CPU tensor, the
+    Hopper kernel for a CUDA tensor (bf16 only; it raises otherwise)."""
+    if x.device.type == "cpu":
+        return fused_stem_plain(x, w1, b1, w2, b2, w3, b3)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_stem: unsupported device {x.device}")
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"fused_stem kernel takes bf16, got {x.dtype}")
+    N, C, H, W = x.shape
+    if C != 3:
+        raise ValueError(f"fused_stem: 3 input channels expected, got {C}")
+    for w, b, (cin, cout, _) in zip((w1, w2, w3), (b1, b2, b3), STEM_SHAPES):
+        if tuple(w.shape) != (cout, cin, 3, 3) or tuple(b.shape) != (cout,):
+            raise ValueError(f"fused_stem: weight {tuple(w.shape)} / bias "
+                             f"{tuple(b.shape)} do not match {cin}->{cout}")
+    xh = x.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
+    # HWIO copies (tiny): conv1_1's fp32 for the CUDA cores, the others bf16
+    # for the tensor cores; fp32 biases
+    ws = [w.to(x.dtype).to(dt).permute(2, 3, 1, 0).contiguous()
+          for w, dt in ((w1, torch.float32), (w2, x.dtype), (w3, x.dtype))]
+    bs = [b.float().contiguous() for b in (b1, b2, b3)]
+    for t in (*ws, *bs):
+        if t.device != x.device:
+            raise ValueError(f"fused_stem: parameter on {t.device}, x on {x.device}")
+    s2h, s2w = (H - 1) // 2 + 1, (W - 1) // 2 + 1
+    s4h, s4w = (s2h - 1) // 2 + 1, (s2w - 1) // 2 + 1
+    y = torch.empty((N, 64, s4h, s4w), dtype=x.dtype, device=x.device,
+                    memory_format=torch.channels_last)
+    lib = _lib()
+    fused_stem.launches += 1
+    err = lib.fused_stem_launch(
+        xh.data_ptr(), ws[0].data_ptr(), bs[0].data_ptr(), ws[1].data_ptr(),
+        bs[1].data_ptr(), ws[2].data_ptr(), bs[2].data_ptr(), y.data_ptr(),
+        N, H, W, torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_stem kernel launch failed: cudaError {err}")
+    return y
+
+
+fused_stem.launches = 0
+
+
+def apply_stem(mods: Sequence, x: torch.Tensor) -> torch.Tensor:
+    """conv1_1..conv1_3 (+BN +relu) + max-pool: fused where eligible."""
+    if stem_eligible(mods, x):
+        ws = []
+        for m in mods:
+            ws.extend(fold_eval_bn(m))
+        return fused_stem(x, *ws)
+    for m in mods:
+        x = m(x)
+    return max_pool2d(x, 3, 2, 1)

@@ -1,0 +1,79 @@
+"""The port's Hopper kernels against their plain versions, on the card.
+
+Marked ``gpu``: each test decides inside itself whether a card exists and
+skips without one.  Imports torch and numpy only (no JAX), so it runs on the
+GPU machine: ``python -m pytest tests/test_torch_port_gpu.py -m gpu``.
+Tolerance: max-abs error <= 2% of the plain output's max-abs (bf16 operands).
+"""
+import numpy as np
+import pytest
+import torch
+
+from ppyolo_tpu_torch.ops.deform_conv import deform_conv2d, deform_conv2d_plain
+from ppyolo_tpu_torch.ops.stem import fused_stem, fused_stem_plain
+
+
+def _nchw(a, dtype):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(dtype).permute(0, 3, 1, 2)
+
+
+def _dcn_inputs(seed, n, h, w, c, oc, stride):
+    r = np.random.RandomState(seed)
+    oh, ow = (h - 1) // stride + 1, (w - 1) // stride + 1
+    x = r.randn(n, h, w, c).astype(np.float32)
+    wt = (r.randn(oc, c, 3, 3) * 0.1).astype(np.float32)
+    off = (r.randn(n, oh, ow, 18) * 2.0).astype(np.float32)
+    off[..., 0, 0, 0] = 3.0 * h           # far out of range
+    off[..., -1, -1, 2] = float(h)        # on the clamp edge
+    msk = r.randn(n, oh, ow, 9).astype(np.float32)
+    return x, wt, np.concatenate([off, msk], axis=-1)
+
+
+def _stem_args(seed, dtype, dev):
+    r = np.random.RandomState(seed)
+    out = []
+    for cin, cout, s in ((3, 32, 0.3), (32, 32, 0.1), (32, 64, 0.1)):
+        out.append(torch.from_numpy((r.randn(cout, cin, 3, 3) * s).astype(np.float32))
+                   .to(dev, dtype))
+        out.append(torch.from_numpy((r.randn(cout) * 0.1).astype(np.float32)).to(dev))
+    return out
+
+
+def _cuda_or_skip():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the H100)")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 9, 9, 32, 64, 1), (1, 38, 38, 64, 128, 2),
+                                   (3, 13, 17, 96, 64, 1)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_dcn_kernel_matches_plain(shape, dtype):
+    dev = _cuda_or_skip()
+    n, h, w, c, oc, stride = shape
+    x, wt, om = _dcn_inputs(3, n, h, w, c, oc, stride)
+    xt = _nchw(x, dtype).to(dev)
+    wtt = torch.from_numpy(wt).to(dev)
+    om = _nchw(om, dtype).to(dev)
+    want = deform_conv2d_plain(xt, wtt, om, stride=stride, padding=1).float()
+    got = deform_conv2d(xt, wtt, om, stride=stride, padding=1)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    assert (got.float() - want).abs().max() <= 0.02 * want.abs().max()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size,batch", [(64, 2), (70, 1), (608, 1)])
+def test_stem_kernel_matches_plain(size, batch):
+    dev = _cuda_or_skip()
+    x = np.random.RandomState(4).randn(batch, size, size, 3).astype(np.float32)
+    xt = _nchw(x, torch.bfloat16).to(dev)
+    args = _stem_args(size, torch.bfloat16, dev)
+    want = fused_stem_plain(xt, *args).float()
+    got = fused_stem(xt, *args)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    assert (got.float() - want).abs().max() <= 0.02 * want.abs().max()
