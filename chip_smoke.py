@@ -12,12 +12,14 @@ Phases, one JSON line each; any failure exits non-zero:
 2. build    -- builds every kernel from ``ppyolo_tpu_torch/csrc`` with nvcc
                (one process per source, in parallel) and prints the
                ``-Xptxas -v`` register / shared-memory summary.
-3. kernels  -- each kernel at the shapes the ppyolo_2x@608 batch-8 serving
-               path gives it, held against its plain PyTorch version on the
-               same inputs on the card (max-abs error <= 2% of the plain
-               output's max-abs: bf16 rounding of the operands), and timed
+3. kernels  -- each kernel at the shapes its path gives it (K1 and K2 at
+               ppyolo_2x@608 batch-8 serving, K3 at the same model's
+               training step), held against its plain PyTorch version on
+               the same inputs on the card (max-abs error <= 2% of the
+               plain output's max-abs: bf16 rounding of the operands, and
+               for K3 fp32 atomics that sum in another order), and timed
                with CUDA events over warm launches beside the plain version
-               and the bound (989 TFLOP/s bf16, 3.35 TB/s).
+               and the bound (989 TFLOP/s bf16, 67 TFLOP/s fp32, 3.35 TB/s).
 4. serving  -- ppyolo_2x at full width (random weights from a seed) through
                the port's ``Detector``: BN folded, bf16, batch 8 at 608x608,
                decode and Matrix-NMS on the card.  The launch counters are
@@ -30,6 +32,20 @@ Phases, one JSON line each; any failure exits non-zero:
                the spread) beside the card's name and power limit.
 5. profile  -- device time by kernel (torch.profiler) over 3 more batches,
                the device's idle share, and the host's share of a batch.
+6. training -- ppyolo_2x at full width and depth with ``freeze_at=0``
+               (every stage trains, so the DCN backward runs), bf16 mixed
+               precision, EMA and DropBlock on, batch 8 at 608x608 on
+               seeded synthetic uint8 batches whose targets are built on the
+               card, through the port's ``run_training``: 2 warm-up steps,
+               then 3 timed windows of 10 steps.  Counters zeroed before and
+               read after: K1 and K3 3 times a step, K2 never (training runs
+               the unfused stem).  Logged losses finite, every trainable
+               leaf moved, the EMA-applied state finite.
+7. train_profile -- device time by kernel per step over 3 more steps and the
+               device's idle share.
+8. train_check -- one fp32 step (TF32 off) on the card against the same step
+               on the CPU path (the kernels' plain versions) at 128x128,
+               batch 2, DropBlock off: losses and stage 5's gradients.
 
 Then one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.  Imports nothing of JAX.
@@ -44,11 +60,19 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core peak
+PEAK_FP32_FLOPS = 67e12      # H100 SXM fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
 TOL = 0.02                   # max-abs error / max-abs of the plain output
 BATCH, SIZE = 8, 608
 WARMUP_BATCHES = 2
 WINDOWS, WINDOW_BATCHES = 5, 40   # timed serving: 200 batches, a few seconds
+TRAIN_WARMUP, TRAIN_WINDOWS, TRAIN_WINDOW_STEPS = 2, 3, 10
+CHECK_SIZE, CHECK_BATCH = 128, 2  # card-vs-CPU training step
+# stage 5 alone, card vs the CPU run that rounds as the kernels do: the
+# card read 0.038 and 0.045 at 128 and 256 px, while the unrounded CPU path
+# lies 0.13-0.14 from both; float32 sums in another order and the rare bf16
+# rounding they flip account for the rest
+STAGE5_TOL = 0.1
 
 
 def emit(obj) -> None:
@@ -79,8 +103,8 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound_ms(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS):
+    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -127,7 +151,8 @@ def dcn_inputs(gen, n, c, h, stride, dev):
     off = torch.randn(n, 18, oh, oh, generator=gen) * 2.0
     off[:, 0, 0, 0] = 3.0 * h            # far out of range
     off[:, 1, -1, -1] = -3.0 * h
-    off[:, 2, 1, :] = float(h)           # lands on the clamp edge
+    off[:, 2, 1, :] = float(h - stride + 1)  # tap 1, output row 1: raw y = H-1+pad
+    off[:, 3, :, 0] = -1.0               # tap 1, output column 0: raw x = -pad
     msk = torch.randn(n, 9, oh, oh, generator=gen)
     om = torch.cat([off, msk], 1).to(dev, torch.bfloat16)
     cl = torch.channels_last
@@ -201,7 +226,70 @@ def phase_kernels():
         replaces="ppyolo_tpu/ops/stem_pallas.py:314", ms=ms, plain_ms=pms,
         bound_ms=b, bound_by=by, library_ms=None, per="batch of 8 (one launch)",
         max_abs_err=acc["max_abs_err"])
+    rows["dcn_bwd"] = kernel_k3(gen, dev)
     return rows
+
+
+def kernel_k3(gen, dev) -> dict:
+    """K3 at the training step's shapes: stage5_0's DCN (38x38 in, stride 2)
+    once and stage5_1/5_2's (19x19, stride 1) twice a step, bf16 as the
+    bf16 step gives them.  dx, dW and d_om of the whole backward (K3 between
+    the two products) against ``dcn_backward(plain=True)`` on the same
+    inputs; K3 timed alone on the dm the backward computes, the whole
+    backward and the plain version beside it."""
+    import torch
+    from ppyolo_tpu_torch.ops.deform_conv import dcn_backward
+    from ppyolo_tpu_torch.ops.deform_conv_cuda import dcn_bwd, pack_dcn_weight
+
+    c = 512
+    shapes = []
+    k3 = {"ms": 0.0, "backward_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+          "max_abs_err": 0.0, "max_rel_err": 0.0}
+    for h, stride, per_step in ((38, 2, 1), (19, 1, 2)):
+        x, w, om, oh = dcn_inputs(gen, BATCH, c, h, stride, dev)
+        g = torch.randn(BATCH, c, oh, oh, generator=gen).to(dev, torch.bfloat16)
+        g = g.contiguous(memory_format=torch.channels_last)
+        run_b = lambda: dcn_backward(x, w, om, g, stride=stride, padding=1)
+        run_p = lambda: dcn_backward(x, w, om, g, stride=stride, padding=1, plain=True)
+        got, want = run_b(), run_p()
+        torch.cuda.synchronize()
+        acc = {}
+        for name, a, b in zip(("dx", "dW", "d_om"), got, want):
+            if a.dtype != b.dtype or a.shape != b.shape or not bool(torch.isfinite(a).all()):
+                raise AssertionError(f"dcn_bwd {h}x{h}/s{stride} {name}: {a.dtype} "
+                                     f"{tuple(a.shape)} vs {b.dtype} {tuple(b.shape)}")
+            acc[name] = check_close(f"dcn_bwd {h}x{h}/s{stride} {name}", a, b)
+        dm = g.permute(0, 2, 3, 1).reshape(-1, c) @ pack_dcn_weight(w).t()
+        run_k = lambda: dcn_bwd(x, om, dm, ksize=(3, 3), stride=stride, padding=1)
+        ms, bms, pms = cuda_ms(run_k, 20), cuda_ms(run_b, 20), cuda_ms(run_p, 3)
+        p = BATCH * oh * oh
+        elems = p * 9 * c
+        # per (pixel, tap, channel): bilinear sample 7, dmod 2, dsamp 1,
+        # scatter 8, corner dots 8, column 1 -- fp32 on the CUDA cores
+        flops = 27.0 * elems
+        # each input read once (x, om, dm bf16), each output written once
+        # (dx fp32, d_om bf16, cols bf16)
+        nbytes = (x.numel() + om.numel() + elems) * 2 + x.numel() * 4 + (om.numel() + elems) * 2
+        b, by = bound_ms(flops, nbytes, PEAK_FP32_FLOPS)
+        err = max(a["max_abs_err"] / max(a["max_abs_ref"], 1e-30) for a in acc.values())
+        shapes.append({"x": [BATCH, h, h, c], "stride": stride, "per_step": per_step,
+                       "ms": ms, "backward_ms": bms, "plain_ms": pms, "bound_ms": b,
+                       "bound_by": by, "mflop": flops / 1e6, "mbytes": nbytes / 1e6,
+                       "gemm_gflop_each": 2.0 * p * c * 9 * c / 1e9, "checks": acc})
+        k3["ms"] += per_step * ms
+        k3["backward_ms"] += per_step * bms
+        k3["plain_ms"] += per_step * pms
+        k3["bound_ms"] += per_step * b
+        k3["max_abs_err"] = max(k3["max_abs_err"], max(a["max_abs_err"] for a in acc.values()))
+        k3["max_rel_err"] = max(k3["max_rel_err"], err)
+        emit({"phase": "kernel_check", "kernel": "dcn_bwd", **shapes[-1]})
+    bound_by = {sh["bound_by"] for sh in shapes}
+    return dict(
+        name="dcn_bwd", route="cuda", source="ppyolo_tpu_torch/csrc/dcn_bwd.cu",
+        replaces="ppyolo_tpu/ops/deform_conv_pallas.py:261",
+        bound_by=bound_by.pop() if len(bound_by) == 1 else "mixed",
+        library_ms=None, per="training step of 8 (one 38x38/s2 + two 19x19/s1 launches)",
+        shapes=shapes, **k3)
 
 
 def build_model(cfg, device, calib_size=None):
@@ -338,9 +426,7 @@ def phase_profile(det, images, sizes, batch_ms):
         for _ in range(3):
             det.predict_batch(images, sizes)
         torch.cuda.synchronize()
-    ev = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    total = sum(e.self_device_time_total for e in ev) / 1e3 / 3
-    top = sorted(ev, key=lambda e: -e.self_device_time_total)[:25]
+    total, top, by_class = device_time(prof, 3)
 
     # host side of one batch: upload + normalize, enqueue of the forward
     # (returns before the card finishes), then the wait for the card
@@ -376,9 +462,257 @@ def phase_profile(det, images, sizes, batch_ms):
           "device_ms_per_batch": total,
           "device_idle_share": max(0.0, 1.0 - total / batch_ms),
           "host_upload_normalize_ms": upload_ms, "host_enqueue_forward_ms": enqueue_ms,
-          "host_wait_ms": wait_ms, "host_hot_functions": hot,
-          "top": [{"name": e.key[:90], "ms_per_batch": e.self_device_time_total / 1e3 / 3,
-                   "calls_per_batch": e.count / 3} for e in top]})
+          "host_wait_ms": wait_ms, "host_hot_functions": hot, "by_class": by_class,
+          "top": top})
+
+
+KERNEL_CLASSES = (   # (class, substrings of the kernel name), first match wins
+    ("port_kernels", ("dcn_fwd_kernel", "dcn_bwd_kernel", "fused_stem_kernel")),
+    ("conv_gemm", ("xmma", "nvjet", "cutlass", "gemm", "cudnn", "dgrad", "wgrad")),
+    ("copy_memset", ("Memcpy", "Memset", "copy_kernel", "CatArray")),
+    ("elementwise_reduce", ("at::native",)),
+)
+
+
+def device_time(prof, units: int, n_top: int = 25):
+    """(device ms per unit, the n_top kernels by device time per unit, ms
+    per unit by KERNEL_CLASSES) of a torch.profiler run over ``units``
+    batches or steps."""
+    ev = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    total = sum(e.self_device_time_total for e in ev) / 1e3 / units
+    top = sorted(ev, key=lambda e: -e.self_device_time_total)[:n_top]
+    by_class = {}
+    for e in ev:
+        cls = next((c for c, keys in KERNEL_CLASSES if any(k in e.key for k in keys)), "other")
+        by_class[cls] = by_class.get(cls, 0.0) + e.self_device_time_total / 1e3 / units
+    return total, [{"name": e.key[:90], "ms": e.self_device_time_total / 1e3 / units,
+                    "calls": e.count / units} for e in top], by_class
+
+
+def train_config():
+    """ppyolo_2x fine-tuning with every stage trainable (``freeze_at=0``,
+    docs/DESIGN.md "freeze_at=0 fine-tuning"), bf16 mixed precision, the
+    recipe's EMA, DropBlock, LR schedule and SGD, as tools/bench_train.py
+    runs it with ``--freeze 0``."""
+    from configs import PPYOLO_2x_Config
+
+    cfg = PPYOLO_2x_Config()
+    cfg.backbone = dict(cfg.backbone, freeze_at=0)
+    cfg.train_cfg = dict(cfg.train_cfg, batch_size=BATCH, precision="bf16",
+                         log_iter=TRAIN_WINDOW_STEPS)
+    return cfg
+
+
+def synthetic_train_batch(cfg, seed: int, batch: int, size: int) -> dict:
+    """One host batch as tools/bench_train.py makes it (lines 76-100): uint8
+    images, 8 gt boxes of 50 padded slots per image; targets are built on
+    the card from gt_class / gt_score."""
+    import numpy as np
+
+    r = np.random.RandomState(seed)
+    m = 50
+    gt_bbox = np.zeros((batch, m, 4), np.float32)
+    gt_bbox[:, :8, 0:2] = r.uniform(0.2, 0.8, (batch, 8, 2))
+    gt_bbox[:, :8, 2:4] = r.uniform(0.05, 0.4, (batch, 8, 2))
+    gt_class = r.randint(0, cfg.num_classes, (batch, m)).astype(np.int32)
+    gt_score = np.zeros((batch, m), np.float32)
+    gt_score[:, :8] = 1.0
+    return {"image": r.randint(0, 256, (batch, size, size, 3)).astype(np.uint8),
+            "gt_bbox": gt_bbox, "gt_class": gt_class, "gt_score": gt_score}
+
+
+def phase_training(smi: str):
+    """The training path through ``run_training``; windows are timed by the
+    batch iterator, which synchronizes at each window's edge."""
+    import numpy as np
+    import torch
+    from ppyolo_tpu_torch.ops.deform_conv_cuda import dcn_bwd, dcn_fwd
+    from ppyolo_tpu_torch.ops.stem import fused_stem
+    from ppyolo_tpu_torch.train.loop import run_training
+
+    cfg = train_config()
+    t0 = time.time()
+    model = build_model(cfg, "cuda")
+    before = {k: p.detach().clone() for k, p in model.named_parameters() if p.requires_grad}
+    host = [synthetic_train_batch(cfg, seed, BATCH, SIZE) for seed in (0, 1)]
+    setup_s = time.time() - t0
+    n_steps = TRAIN_WARMUP + TRAIN_WINDOWS * TRAIN_WINDOW_STEPS
+    edges = []
+
+    def batches():
+        for i in range(n_steps + 1):   # the last request ends the last window
+            if i >= TRAIN_WARMUP and (i - TRAIN_WARMUP) % TRAIN_WINDOW_STEPS == 0:
+                torch.cuda.synchronize()
+                edges.append(time.perf_counter())
+            yield host[i % 2]
+
+    logged = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dcn_fwd.launches = dcn_bwd.launches = fused_stem.launches = 0
+    state, eval_sd = run_training(cfg, batches(), device="cuda", max_iters=n_steps,
+                                  model=model, log_fn=lambda i, v: logged.append((i, v)))
+    torch.cuda.synchronize()
+    launches = {"dcn_fwd": dcn_fwd.launches, "dcn_bwd": dcn_bwd.launches,
+                "fused_stem": fused_stem.launches}
+    want = {"dcn_fwd": 3 * n_steps, "dcn_bwd": 3 * n_steps, "fused_stem": 0}
+    if launches != want:
+        raise AssertionError(f"training launch counts {launches} for {n_steps} steps, "
+                             f"want {want}")
+    if state.step != n_steps or len(edges) != TRAIN_WINDOWS + 1:
+        raise AssertionError(f"took {state.step} steps, {len(edges)} window edges")
+    if len(logged) != n_steps // TRAIN_WINDOW_STEPS or not all(
+            np.isfinite(v) for _, d in logged for v in d.values()):
+        raise AssertionError(f"logged losses {logged}")
+    params = dict(model.named_parameters())
+    frozen = [k for k in state.trainable if torch.equal(before[k], params[k].detach())]
+    if set(state.trainable) != set(before) or frozen:
+        raise AssertionError(f"{len(frozen)} trainable leaves did not move: {frozen[:8]}")
+    bad = [k for k, v in eval_sd.items() if not bool(torch.isfinite(v).all())]
+    if bad:
+        raise AssertionError(f"non-finite EMA-applied leaves {bad[:8]}")
+    step_ms = [1e3 * (b - a) / TRAIN_WINDOW_STEPS for a, b in zip(edges, edges[1:])]
+    med = float(np.median(step_ms))
+    ips = [BATCH / (t / 1e3) for t in step_ms]
+    result = {"phase": "training", "model": "ppyolo_2x", "freeze_at": 0, "size": SIZE,
+              "batch": BATCH, "precision": "bf16", "ema": True, "drop_block": True,
+              "steps": n_steps, "warmup_steps": TRAIN_WARMUP,
+              "window_steps": TRAIN_WINDOW_STEPS, "window_ms_per_step": step_ms,
+              "ms_per_step_median": med, "img_per_s": BATCH / (med / 1e3),
+              "window_img_per_s": ips,
+              "window_spread": (max(step_ms) - min(step_ms)) / med,
+              "setup_s": setup_s, "launches": launches,
+              "trainable_leaves": len(state.trainable), "leaves_moved": len(state.trainable),
+              "logged_losses": logged, "nvidia_smi": smi,
+              "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit(result)
+    return state, cfg, host, med, launches
+
+
+def phase_train_profile(state, cfg, host, step_ms: float):
+    """Device time by kernel per step over 3 steps of the same loop body
+    (H2D of the batch, the step), and the idle share against the unprofiled
+    median step time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from ppyolo_tpu_torch.train.loop import to_device_batch
+    from ppyolo_tpu_torch.train.train_step import make_train_step
+
+    dev = torch.device("cuda")
+    step_fn = make_train_step(state.model, cfg, compute_dtype=torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    state, _ = step_fn(state, to_device_batch(host[0], dev), gen)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(3):
+            state, _ = step_fn(state, to_device_batch(host[i % 2], dev), gen)
+        torch.cuda.synchronize()
+    total, top, by_class = device_time(prof, 3, 30)
+    ours = {k: sum(e["ms"] for e in top if k in e["name"])
+            for k in ("dcn_fwd_kernel", "dcn_bwd_kernel")}
+    emit({"phase": "train_profile", "steps": 3, "ms_per_step_median": step_ms,
+          "device_ms_per_step": total, "device_idle_share": max(0.0, 1.0 - total / step_ms),
+          "kernel_ms_per_step": ours, "by_class": by_class, "top": top})
+
+
+def phase_train_check():
+    """The card's training gradients against the CPU path (the kernels'
+    plain versions), fp32 with TF32 off, from the same weights.
+
+    1. One train step at CHECK_SIZE, DropBlock off (the two devices'
+       generators differ): losses within 2e-3 relative L2.  Stage 5's
+       gradients in that step are held only loosely: this random network's
+       train-mode backward amplifies any rounding, so a third run on the
+       CPU that rounds the DCN's operands to bf16 as K1 and K3 do
+       (``operand_dtype``) measures the spread that rounding alone makes,
+       and the card may lie no farther from the CPU path than twice that.
+    2. Stage 5 alone (the three blocks that hold the DCNs, full width) from
+       one seeded input and output cotangent, where the backward is well
+       conditioned: its parameter and input gradients on the card within
+       STAGE5_TOL relative L2 of the CPU run that rounds as the kernels
+       do.  A gradient that is wrong in form, or missing, lies far
+       farther."""
+    import contextlib
+
+    import numpy as np
+    import torch
+    from ppyolo_tpu_torch.ops import conv as conv_mod
+    from ppyolo_tpu_torch.ops.deform_conv import DeformConv2dFunction
+    from ppyolo_tpu_torch.train.loop import to_device_batch
+    from ppyolo_tpu_torch.train.train_step import init_train_state, make_train_step
+
+    cl = torch.channels_last
+    cfg = train_config()
+    cfg.head = dict(cfg.head, drop_block=False)
+    host = synthetic_train_batch(cfg, 3, CHECK_BATCH, CHECK_SIZE)
+    r = np.random.RandomState(5)
+    s5 = CHECK_SIZE // 16   # stage 5's input side at CHECK_SIZE
+    x5 = torch.from_numpy(np.maximum(r.randn(CHECK_BATCH, 1024, s5, s5), 0).astype(np.float32))
+    cot5 = torch.from_numpy(r.randn(CHECK_BATCH, 2048, s5 // 2, s5 // 2).astype(np.float32))
+
+    @contextlib.contextmanager
+    def dcn_rounding(emulate):
+        """With ``emulate``, the CPU path's DCN rounds its operands as the
+        kernels do."""
+        orig = conv_mod.deform_conv2d
+        if emulate:
+            conv_mod.deform_conv2d = (
+                lambda x, w, om, *, stride, padding, packed_weight=None, bias=None:
+                DeformConv2dFunction.apply(x, w, om, stride, padding, torch.bfloat16))
+        try:
+            yield
+        finally:
+            conv_mod.deform_conv2d = orig
+
+    def stage5_grads(model):
+        return [p.grad.detach().double().cpu().flatten()
+                for k, p in model.named_parameters() if k.startswith("backbone.stage5")]
+
+    def one_step(dev, emulate=False):
+        model = build_model(cfg, dev).to(memory_format=cl)
+        state = init_train_state(model, cfg)
+        with dcn_rounding(emulate):
+            _, losses = make_train_step(model, cfg)(state, to_device_batch(host, torch.device(dev)))
+        lv = torch.tensor([float(v) for k, v in losses.items() if k != "lr"], dtype=torch.float64)
+        return lv, torch.cat(stage5_grads(model))
+
+    def stage5_alone(dev, emulate=False):
+        model = build_model(cfg, dev).to(memory_format=cl).train()
+        x = x5.to(dev).contiguous(memory_format=cl).requires_grad_()
+        with dcn_rounding(emulate):
+            y = x
+            for name in ("stage5_0", "stage5_1", "stage5_2"):
+                y = getattr(model.backbone, name)(y)
+            (y * cot5.to(dev)).sum().backward()
+        return (y.detach().double().cpu().flatten(),
+                torch.cat([x.grad.double().cpu().flatten()] + stage5_grads(model)))
+
+    runs = {"card": (*one_step("cuda"), *stage5_alone("cuda")),
+            "cpu": (*one_step("cpu"), *stage5_alone("cpu")),
+            "cpu_bf16_dcn": (*one_step("cpu", True), *stage5_alone("cpu", True))}
+
+    def rel(a, b, i):
+        return float((runs[a][i] - runs[b][i]).norm() / runs[b][i].norm())
+
+    out = {f"{what}_{a}_vs_{b}": rel(a, b, i)
+           for i, what in ((0, "losses"), (1, "stage5_grads"), (2, "stage5_alone_out"),
+                           (3, "stage5_alone_grads"))
+           for a, b in (("card", "cpu"), ("cpu_bf16_dcn", "cpu"), ("card", "cpu_bf16_dcn"))}
+    finite = all(bool(torch.isfinite(v).all()) for r in runs.values() for v in r)
+    emit({"phase": "train_check", "size": CHECK_SIZE, "batch": CHECK_BATCH,
+          "precision": "fp32", "tf32": False, "finite": finite, **out})
+    if not finite:
+        raise AssertionError("non-finite losses or gradients in the train check")
+    if out["losses_card_vs_cpu"] > 2e-3:
+        raise AssertionError(f"card vs CPU losses: relative L2 {out['losses_card_vs_cpu']} > 2e-3")
+    spread = out["stage5_grads_cpu_bf16_dcn_vs_cpu"]
+    if out["stage5_grads_card_vs_cpu"] > 2.0 * spread:
+        raise AssertionError(f"card vs CPU stage-5 gradients: relative L2 "
+                             f"{out['stage5_grads_card_vs_cpu']} > 2 x {spread}")
+    got = out["stage5_alone_grads_card_vs_cpu_bf16_dcn"]
+    if got > STAGE5_TOL:
+        raise AssertionError(f"stage 5 alone, card vs CPU with the kernels' rounding: "
+                             f"relative L2 of the gradients {got} > {STAGE5_TOL}")
 
 
 def main() -> int:
@@ -393,14 +727,23 @@ def main() -> int:
         rows = phase_kernels()
         det, images, sizes, batch_ms, launches = phase_serving(smi)
         phase_profile(det, images, sizes, batch_ms)
+        del det
+        torch.cuda.empty_cache()
+        state, cfg, host, step_ms, train_launches = phase_training(smi)
+        phase_train_profile(state, cfg, host, step_ms)
+        del state
+        torch.cuda.empty_cache()
+        phase_train_check()
     except Exception as e:  # report and fail: no result line
         import traceback
 
         traceback.print_exc()
         print(f"chip_smoke FAILED: {type(e).__name__}: {e}", file=sys.stderr, flush=True)
         return 1
-    for k, row in rows.items():
-        row["launches"] = launches[k]
+    for k, row in rows.items():   # each path's counts, read just after it ran
+        by_path = {"serving": launches.get(k, 0), "training": train_launches[k]}
+        row["launches"] = by_path["training" if k == "dcn_bwd" else "serving"]
+        row["launches_by_path"] = by_path
     emit({"kernels": list(rows.values())})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -1,4 +1,4 @@
-"""YOLOv3 FPN head with the PP-YOLO tricks, eval mode.
+"""YOLOv3 FPN head with the PP-YOLO tricks.
 
 Counterpart of ``ppyolo_tpu/models/head.py`` (``DetectionBlock``,
 ``YOLOv3Head.get_outputs`` / ``get_prediction``): CoordConv, SPP on the
@@ -8,18 +8,19 @@ DropBlock slots consume ``layers`` indices, so the keys match the JAX
 param tree (``detection_blocks.0.layers.1.conv.weight``).  Every concat is
 materialized with ``torch.cat``; the JAX package's virtual concat
 (``HEAD_DECOMPOSE``) is a TPU layout optimisation not ported yet.
-DropBlock is a training-time op and is the identity here.
+DropBlock runs in training only (``head.py:143-147``), drawing from the
+generator handed to ``get_outputs``.
 """
 from __future__ import annotations
 
-from typing import List
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
-from ..ops.blocks import coord_conv, spp, upsample_nearest_2x
-from ..ops.conv import ConvNormAct
+from ..ops.blocks import coord_conv, drop_block, spp, upsample_nearest_2x
+from ..ops.conv import ConvNormAct, param_policy_tree
 from ..ops.matrix_nms import matrix_nms
 from ..ops.yolo_box import yolo_box_serving
 
@@ -28,10 +29,12 @@ class DetectionBlock(nn.Module):
     """One FPN level body (reference head.py:146-239)."""
 
     def __init__(self, in_c, channel, *, coord=True, norm="bn", conv_block_num=2,
-                 is_first=False, use_spp=True, drop_blk=True):
+                 is_first=False, use_spp=True, drop_blk=True, block_size=3,
+                 keep_prob=0.9):
         super().__init__()
         assert channel % 2 == 0
         self.coord = coord
+        self.block_size, self.keep_prob = block_size, keep_prob
         seq = []                       # (kind, key): coord | conv | spp | drop
         layers = {}
 
@@ -66,7 +69,7 @@ class DetectionBlock(nn.Module):
         self.tip_layers = nn.ModuleDict({"1": ConvNormAct(
             channel + 2 if coord else channel, channel * 2, 3, norm=norm, act="leaky")})
 
-    def forward(self, x):
+    def forward(self, x, generator: Optional[torch.Generator] = None):
         for kind, key in self.seq:
             if kind == "coord" and self.coord:
                 x = coord_conv(x)
@@ -74,26 +77,31 @@ class DetectionBlock(nn.Module):
                 x = self.layers[key](x)
             elif kind == "spp":
                 x = spp(x)
+            elif kind == "drop" and self.training:
+                x = drop_block(x, generator, block_size=self.block_size,
+                               keep_prob=self.keep_prob)
         route = x
         tip = self.tip_layers["1"](coord_conv(route) if self.coord else route)
         return route, tip
 
 
 class YOLOv3Head(nn.Module):
-    """Reference YOLOv3Head (head.py:242-469), eval mode."""
+    """Reference YOLOv3Head (head.py:242-469)."""
 
     def __init__(self, num_classes=80, conv_block_num=2,
                  anchors=((10, 13), (16, 30), (33, 23), (30, 61), (62, 45), (59, 119),
                           (116, 90), (156, 198), (373, 326)),
                  anchor_masks=((6, 7, 8), (3, 4, 5), (0, 1, 2)), norm_type="bn",
                  coord_conv=True, iou_aware=True, iou_aware_factor=0.4,
-                 scale_x_y=1.05, spp=True, drop_block=True, clip_bbox=True,
-                 downsample=(32, 16, 8), in_channels=(2048, 1024, 512),
-                 nms_cfg=None, **_training_only):
+                 scale_x_y=1.05, spp=True, drop_block=True, block_size=3,
+                 keep_prob=0.9, clip_bbox=True, downsample=(32, 16, 8),
+                 in_channels=(2048, 1024, 512), nms_cfg=None, **_unused):
         super().__init__()
         self.num_classes = num_classes
         self.anchors = np.asarray(anchors, np.float32)
         self.anchor_masks = [list(m) for m in anchor_masks]
+        self.mask_anchors = [[float(v) for a in m for v in anchors[a]]
+                             for m in anchor_masks]
         self.iou_aware = iou_aware
         self.iou_aware_factor = iou_aware_factor
         self.scale_x_y = scale_x_y
@@ -109,7 +117,8 @@ class YOLOv3Head(nn.Module):
             channel = 64 * (2 ** n) // (2 ** i)
             blocks.append(DetectionBlock(in_c, channel, coord=coord_conv, norm=norm_type,
                                          conv_block_num=conv_block_num, is_first=i == 0,
-                                         use_spp=spp, drop_blk=drop_block))
+                                         use_spp=spp, drop_blk=drop_block,
+                                         block_size=block_size, keep_prob=keep_prob))
             an = len(self.anchor_masks[i])
             nf = an * (num_classes + 6) if iou_aware else an * (num_classes + 5)
             outs.append(ConvNormAct(channel * 2, nf, 1, bias=True, act=None))
@@ -120,14 +129,19 @@ class YOLOv3Head(nn.Module):
         self.yolo_output_convs = nn.ModuleList(outs)
         self.upsample_layers = nn.ModuleDict(trans)
 
-    def get_outputs(self, body_feats: List[torch.Tensor]) -> List[torch.Tensor]:
-        """Top-down pathway; raw per-level maps, level 0 the coarsest."""
+    def param_policy(self) -> Dict[str, Any]:
+        return param_policy_tree(self)
+
+    def get_outputs(self, body_feats: List[torch.Tensor],
+                    generator: Optional[torch.Generator] = None) -> List[torch.Tensor]:
+        """Top-down pathway; raw per-level maps, level 0 the coarsest.
+        ``generator`` feeds DropBlock in training."""
         outputs = []
         route = None
         for i, block in enumerate(body_feats[::-1][: self.n_levels]):
             if i > 0:
                 block = torch.cat([route, block], dim=1)
-            route, tip = self.detection_blocks[i](block)
+            route, tip = self.detection_blocks[i](block, generator)
             outputs.append(self.yolo_output_convs[i](tip))
             if i < self.n_levels - 1:
                 route = upsample_nearest_2x(self.upsample_layers[str(2 * i)](route))

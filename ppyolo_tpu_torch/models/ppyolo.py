@@ -1,20 +1,23 @@
-"""PPYOLO composite model (backbone + head), eval mode.
+"""PPYOLO composite model (backbone + head).
 
 Counterpart of ``ppyolo_tpu/models/ppyolo.py``.  Images are NCHW (any
 memory format; ``channels_last`` keeps every activation physically NHWC).
+``forward`` is the training forward (the JAX ``outputs``, with gradients);
+``outputs`` and ``predict`` serve without them.
 """
 from __future__ import annotations
 
-from typing import List
+from typing import Any, Dict, List, Optional
 
 import torch
 from torch import nn
 
-from ..ops.conv import ConvNormAct
+from ..ops.conv import ConvNormAct, param_policy_tree
+from ..ops.module import flatten_tree
 from .head import YOLOv3Head
-from .resnet_vd import ResNet50Vd
+from .resnet_vd import ResNet18Vd, ResNet50Vd
 
-BACKBONES = {"Resnet50Vd": ResNet50Vd}
+BACKBONES = {"Resnet50Vd": ResNet50Vd, "Resnet18Vd": ResNet18Vd}
 
 
 class PPYOLO(nn.Module):
@@ -40,6 +43,20 @@ class PPYOLO(nn.Module):
             if isinstance(m, ConvNormAct):
                 m.init_parameters(generator)
         return self
+
+    def param_policy(self) -> Dict[str, Any]:
+        return param_policy_tree(self)
+
+    def flat_policy(self) -> Dict[str, Any]:
+        """{state_dict key: ParamPolicy}, the JAX ``flat_policy``."""
+        return flatten_tree(self.param_policy())
+
+    def forward(self, images: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> List[torch.Tensor]:
+        """Raw per-level head maps [N, C_l, S_l, S_l] with gradients (the
+        JAX ``outputs``, ``ppyolo.py:66-69``); in train mode BN uses batch
+        statistics and DropBlock draws from ``generator``."""
+        return self.head.get_outputs(self.backbone(images), generator)
 
     @torch.no_grad()
     def outputs(self, images: torch.Tensor) -> List[torch.Tensor]:

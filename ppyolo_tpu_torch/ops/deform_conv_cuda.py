@@ -1,8 +1,11 @@
-"""Launch wrapper of the Hopper DCNv2 forward kernel (``csrc/dcn_fwd.cu``).
+"""Launch wrappers of the Hopper DCNv2 kernels.
 
-It replaces ``ppyolo_tpu/ops/deform_conv_pallas.py::deform_conv2d_pallas``
-on the card; ``ops/deform_conv.py::deform_conv2d_plain`` is its plain
-version.  ``dcn_fwd.launches`` counts the kernel's launches.
+K1, ``dcn_fwd`` (``csrc/dcn_fwd.cu``), replaces
+``ppyolo_tpu/ops/deform_conv_pallas.py::deform_conv2d_pallas``; its plain
+version is ``ops/deform_conv.py::deform_conv2d_plain``.  K3, ``dcn_bwd``
+(``csrc/dcn_bwd.cu``), replaces ``_dcn_bwd_pallas``'s kernel; its plain
+version is ``ops/deform_conv.py::dcn_bwd_plain``.  ``dcn_fwd.launches``
+and ``dcn_bwd.launches`` count the launches.
 """
 from __future__ import annotations
 
@@ -14,14 +17,15 @@ import torch
 from . import _build
 from .deform_conv import out_size
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+_ARGTYPES = {"dcn_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12 + [ctypes.c_void_p],
+             "dcn_bwd": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [ctypes.c_void_p]}
 
 
-def _lib():
-    lib = _build.load("dcn_fwd")
-    lib.dcn_fwd_launch.argtypes = _ARGTYPES
-    lib.dcn_fwd_launch.restype = ctypes.c_int
-    return lib
+def _fn(name: str):
+    fn = getattr(_build.load(name), f"{name}_launch")
+    fn.argtypes = _ARGTYPES[name]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def pack_dcn_weight(weight: torch.Tensor) -> torch.Tensor:
@@ -74,9 +78,9 @@ def dcn_fwd(x: torch.Tensor, om: torch.Tensor, packed_weight: torch.Tensor,
             raise ValueError(f"dcn_fwd: bias shape {tuple(bias.shape)}")
     y = torch.empty((N, out_c, oH, oW), dtype=x.dtype, device=x.device,
                     memory_format=torch.channels_last)
-    lib = _lib()
+    launch = _fn("dcn_fwd")
     dcn_fwd.launches += 1
-    err = lib.dcn_fwd_launch(
+    err = launch(
         xh.data_ptr(), omh.data_ptr(), packed_weight.data_ptr(),
         0 if bias is None else bias.data_ptr(), y.data_ptr(),
         int(x.dtype == torch.float32), N, H, W, C, oH, oW, out_c, kh, kw,
@@ -88,3 +92,54 @@ def dcn_fwd(x: torch.Tensor, om: torch.Tensor, packed_weight: torch.Tensor,
 
 
 dcn_fwd.launches = 0
+
+
+def dcn_bwd(x: torch.Tensor, om: torch.Tensor, dm: torch.Tensor, *,
+            ksize: Tuple[int, int], stride: int, padding: int):
+    """K3 on the card, the per-(pixel, tap) part of the DCNv2 backward.
+    x [N,C,H,W] bf16 and om [N,3*k2,oH,oW] (x's layer dtype, bf16 or fp32)
+    in channels_last memory; dm [N*oH*oW, k2*C] bf16 (``g @ W^T``).
+    Returns dx fp32 [N,C,H,W], d_om in om's dtype (both channels_last) and
+    cols [N*oH*oW, k2*C] bf16, as ``dcn_bwd_plain``."""
+    if x.device.type != "cuda":
+        raise ValueError(f"dcn_bwd needs CUDA tensors, got {x.device}")
+    kh, kw = ksize
+    k2 = kh * kw
+    N, C, H, W = x.shape
+    oH, oW = out_size(H, kh, stride, padding), out_size(W, kw, stride, padding)
+    if x.dtype != torch.bfloat16 or dm.dtype != torch.bfloat16:
+        raise ValueError(f"dcn_bwd: x and dm must be bf16, got {x.dtype}, {dm.dtype}")
+    if om.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"dcn_bwd: om dtype {om.dtype} not supported")
+    if tuple(om.shape) != (N, 3 * k2, oH, oW):
+        raise ValueError(f"dcn_bwd: om shape {tuple(om.shape)} != {(N, 3 * k2, oH, oW)}")
+    if tuple(dm.shape) != (N * oH * oW, k2 * C):
+        raise ValueError(f"dcn_bwd: dm shape {tuple(dm.shape)} != {(N * oH * oW, k2 * C)}")
+    if C % 8:
+        raise ValueError(f"dcn_bwd: needs C % 8 == 0, got C={C}")
+    xh = x.permute(0, 2, 3, 1)
+    omh = om.permute(0, 2, 3, 1)
+    for name, t in (("x", xh), ("om", omh), ("dm", dm)):
+        if not t.is_contiguous():
+            raise ValueError(f"dcn_bwd: {name} must be channels_last/contiguous")
+        if t.device != x.device:
+            raise ValueError(f"dcn_bwd: {name} on {t.device}, x on {x.device}")
+    if xh.data_ptr() % 16 or dm.data_ptr() % 16:
+        raise ValueError("dcn_bwd: x and dm must be 16-byte aligned")
+    cl = torch.channels_last
+    dx = torch.zeros((N, H, W, C), dtype=torch.float32, device=x.device).permute(0, 3, 1, 2)
+    d_om = torch.empty((N, 3 * k2, oH, oW), dtype=om.dtype, device=x.device,
+                       memory_format=cl)
+    cols = torch.empty_like(dm)
+    launch = _fn("dcn_bwd")
+    dcn_bwd.launches += 1
+    err = launch(xh.data_ptr(), omh.data_ptr(), dm.data_ptr(), dx.data_ptr(),
+                 d_om.data_ptr(), cols.data_ptr(), int(om.dtype == torch.float32),
+                 N, H, W, C, oH, oW, kh, kw, stride, padding,
+                 torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"dcn_bwd kernel launch failed: cudaError {err}")
+    return dx, d_om, cols
+
+
+dcn_bwd.launches = 0

@@ -65,9 +65,12 @@ def fused_stem_plain(x, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
     return max_pool2d(y, 3, 2, 1)
 
 
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+
+
 def _lib():
     lib = _build.load("fused_stem")
-    lib.fused_stem_launch.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.fused_stem_launch.argtypes = _ARGTYPES
     lib.fused_stem_launch.restype = ctypes.c_int
     return lib
 

@@ -77,3 +77,66 @@ def test_stem_kernel_matches_plain(size, batch):
     torch.cuda.synchronize()
     assert got.shape == want.shape
     assert (got.float() - want).abs().max() <= 0.02 * want.abs().max()
+
+
+def _bwd_inputs(seed, n, h, w, c, oc, stride, dtype, dev):
+    """x, OIHW weight, om (with clamp-edge taps) and an output gradient, on
+    the card in the layer dtype (channels_last)."""
+    x, wt, om = _dcn_inputs(seed, n, h, w, c, oc, stride)
+    oh, ow = om.shape[1:3]
+    om[:, 0, :, 3] = -1.0 - np.arange(ow) * stride        # raw x exactly -padding
+    g = np.random.RandomState(seed + 1).randn(n, oh, ow, oc).astype(np.float32)
+    cl = torch.channels_last
+    return (_nchw(x, dtype).to(dev).contiguous(memory_format=cl), torch.from_numpy(wt).to(dev),
+            _nchw(om, dtype).to(dev).contiguous(memory_format=cl),
+            _nchw(g, dtype).to(dev).contiguous(memory_format=cl))
+
+
+def _close(got, want):
+    return float((got.float() - want.float()).abs().max()) <= 0.02 * float(want.float().abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 9, 9, 32, 64, 1), (1, 38, 38, 64, 128, 2),
+                                   (3, 13, 17, 96, 64, 1)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_dcn_backward_kernel_matches_plain(shape, dtype):
+    """K3 (inside dcn_backward) against dcn_bwd_plain on the same inputs:
+    dx, dW and d_om within 2% of each one's max-abs (fp32 atomics sum in
+    another order)."""
+    from ppyolo_tpu_torch.ops.deform_conv import dcn_backward
+    from ppyolo_tpu_torch.ops.deform_conv_cuda import dcn_bwd
+
+    dev = _cuda_or_skip()
+    n, h, w, c, oc, stride = shape
+    x, wt, om, g = _bwd_inputs(5, n, h, w, c, oc, stride, dtype, dev)
+    before = dcn_bwd.launches
+    got = dcn_backward(x, wt, om, g, stride=stride, padding=1)
+    assert dcn_bwd.launches == before + 1
+    want = dcn_backward(x, wt, om, g, stride=stride, padding=1, plain=True)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dx", "dW", "d_om"), got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert torch.isfinite(a).all() and _close(a, b), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stride", [1, 2])
+def test_dcn_function_grads_match_autograd_of_plain(stride):
+    """The card's DCN under autograd (K1 forward, K3 backward) against
+    autograd of deform_conv2d_plain, fp32 with TF32 off: the kernels round
+    their operands to bf16, so 2% of each gradient's max-abs."""
+    from ppyolo_tpu_torch.ops.deform_conv_cuda import dcn_bwd, dcn_fwd
+
+    dev = _cuda_or_skip()
+    x, wt, om, g = _bwd_inputs(9, 2, 19, 19, 64, 64, stride, torch.float32, dev)
+    leaves = [t.detach().clone().requires_grad_() for t in (x, wt, om)]
+    f0, b0 = dcn_fwd.launches, dcn_bwd.launches
+    y = deform_conv2d(*leaves, stride=stride, padding=1)
+    got = torch.autograd.grad(y, leaves, g)
+    assert (dcn_fwd.launches - f0, dcn_bwd.launches - b0) == (1, 1)
+    ref = [t.detach().clone().requires_grad_() for t in (x, wt, om)]
+    want = torch.autograd.grad(deform_conv2d_plain(*ref, stride=stride, padding=1), ref, g)
+    for name, a, b in zip(("x", "weight", "om"), got, want):
+        assert a is not None and a.shape == b.shape, name
+        assert _close(a, b), name
