@@ -14,36 +14,44 @@ Phases, one JSON line each; any failure exits non-zero:
                ``-Xptxas -v`` register / shared-memory summary.
 3. kernels  -- each kernel at the shapes its path gives it (K1 and K2 at
                ppyolo_2x@608 batch-8 serving, K3 at the same model's
-               training step), held against its plain PyTorch version on
+               training step, K4 at the probe's stage3_0 and stage4_0
+               convs, b8 bf16), held against its plain PyTorch version on
                the same inputs on the card (max-abs error <= 2% of the
                plain output's max-abs: bf16 rounding of the operands, and
                for K3 fp32 atomics that sum in another order), and timed
                with CUDA events over warm launches beside the plain version
-               and the bound (989 TFLOP/s bf16, 67 TFLOP/s fp32, 3.35 TB/s).
-4. serving  -- ppyolo_2x at full width (random weights from a seed) through
+               and the bound (989 TFLOP/s bf16, 67 TFLOP/s fp32, 3.35 TB/s);
+               K4 also beside one cuDNN ``F.conv2d`` call (``library_ms``).
+4. probe    -- the strided-conv probe's entry point
+               (``ppyolo_tpu_torch.tools.probe_strided_conv.main``) at b8
+               bf16 with a short scan: cuDNN, the plain version and K4 over
+               distinct inputs.  Counters zeroed before and read after: K4
+               launched, no other kernel; no variant failed.
+5. serving  -- ppyolo_2x at full width (random weights from a seed) through
                the port's ``Detector``: BN folded, bf16, batch 8 at 608x608,
                decode and Matrix-NMS on the card.  The launch counters are
                zeroed just before and read just after; the kernels must have
-               run 3 (DCN) and 1 (stem) times per batch.  Outputs must be
-               finite [8,100,6], and the card's bf16 head maps must agree
-               with the CPU path (the kernels' plain versions) on a small
-               input.  Times 5 windows of 40 batches after 2 warm-up
-               batches and prints img/s (all windows, and each window's for
-               the spread) beside the card's name and power limit.
-5. profile  -- device time by kernel (torch.profiler) over 3 more batches,
+               run 3 (DCN) and 1 (stem) times per batch, K3 and K4 never.
+               Outputs must be finite [8,100,6], and the card's bf16 head
+               maps must agree with the CPU path (the kernels' plain
+               versions) on a small input.  Times 5 windows of 40 batches
+               after 2 warm-up batches and prints img/s (all windows, and
+               each window's for the spread) beside the card's name and
+               power limit.
+6. profile  -- device time by kernel (torch.profiler) over 3 more batches,
                the device's idle share, and the host's share of a batch.
-6. training -- ppyolo_2x at full width and depth with ``freeze_at=0``
+7. training -- ppyolo_2x at full width and depth with ``freeze_at=0``
                (every stage trains, so the DCN backward runs), bf16 mixed
                precision, EMA and DropBlock on, batch 8 at 608x608 on
                seeded synthetic uint8 batches whose targets are built on the
                card, through the port's ``run_training``: 2 warm-up steps,
                then 3 timed windows of 10 steps.  Counters zeroed before and
-               read after: K1 and K3 3 times a step, K2 never (training runs
-               the unfused stem).  Logged losses finite, every trainable
-               leaf moved, the EMA-applied state finite.
-7. train_profile -- device time by kernel per step over 3 more steps and the
+               read after: K1 and K3 3 times a step, K2 and K4 never
+               (training runs the unfused stem).  Logged losses finite,
+               every trainable leaf moved, the EMA-applied state finite.
+8. train_profile -- device time by kernel per step over 3 more steps and the
                device's idle share.
-8. train_check -- one fp32 step (TF32 off) on the card against the same step
+9. train_check -- one fp32 step (TF32 off) on the card against the same step
                on the CPU path (the kernels' plain versions) at 128x128,
                batch 2, DropBlock off: losses and stage 5's gradients.
 
@@ -73,6 +81,10 @@ CHECK_SIZE, CHECK_BATCH = 128, 2  # card-vs-CPU training step
 # lies 0.13-0.14 from both; float32 sums in another order and the rare bf16
 # rounding they flip account for the rest
 STAGE5_TOL = 0.1
+PROBE_ARGS = ["--batch", str(BATCH), "--scan", "8", "--disp", "2", "--dtype", "bf16"]
+# the path whose run gives each kernel's ``launches``
+MAIN_PATH = {"dcn_fwd": "serving", "fused_stem": "serving", "dcn_bwd": "training",
+             "conv_s2": "probe"}
 
 
 def emit(obj) -> None:
@@ -106,6 +118,25 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
 def bound_ms(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS):
     t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def wrappers() -> dict:
+    """Each kernel's launch wrapper, whose ``launches`` counts its launches."""
+    from ppyolo_tpu_torch.ops.deform_conv_cuda import dcn_bwd, dcn_fwd
+    from ppyolo_tpu_torch.ops.stem import fused_stem
+    from ppyolo_tpu_torch.ops.strided_conv import conv_s2
+
+    return {"dcn_fwd": dcn_fwd, "dcn_bwd": dcn_bwd, "fused_stem": fused_stem,
+            "conv_s2": conv_s2}
+
+
+def zero_counts() -> None:
+    for fn in wrappers().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {k: fn.launches for k, fn in wrappers().items()}
 
 
 def check_close(name: str, got, want) -> dict:
@@ -227,7 +258,67 @@ def phase_kernels():
         bound_ms=b, bound_by=by, library_ms=None, per="batch of 8 (one launch)",
         max_abs_err=acc["max_abs_err"])
     rows["dcn_bwd"] = kernel_k3(gen, dev)
+    rows["conv_s2"] = kernel_k4(gen, dev)
     return rows
+
+
+def kernel_k4(gen, dev) -> dict:
+    """K4 at the probe's b8 bf16 shapes (stage3_0 and stage4_0's strided
+    3x3) against ``conv_s2_phase``, timed beside it and beside one cuDNN
+    ``F.conv2d`` call on the same inputs."""
+    import torch
+    from ppyolo_tpu_torch.ops.strided_conv import conv_s2, conv_s2_conv2d, conv_s2_phase
+    from ppyolo_tpu_torch.tools.probe_strided_conv import SHAPES
+
+    shapes = []
+    k4 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0}
+    t_ops = t_bytes = 0.0
+    for name, h, c, co in SHAPES:
+        x = torch.randn(BATCH, h, h, c, generator=gen).to(dev, torch.bfloat16).permute(0, 3, 1, 2)
+        w = (torch.randn(co, c, 3, 3, generator=gen) * (2.0 / (9 * c)) ** 0.5).to(dev, torch.bfloat16)
+        run_k = lambda: conv_s2(x, w)
+        run_p = lambda: conv_s2_phase(x, w)
+        run_l = lambda: conv_s2_conv2d(x, w)
+        got, want, lib = run_k(), run_p(), run_l()
+        torch.cuda.synchronize()
+        acc = check_close(f"conv_s2 {name}", got, want)
+        acc["library_max_abs_err"] = float((lib.float() - want.float()).abs().max())
+        ms, pms, lms = cuda_ms(run_k, 20), cuda_ms(run_p, 5), cuda_ms(run_l, 20)
+        s = h // 2
+        flops = 2.0 * BATCH * s * s * 9 * c * co
+        nbytes = (x.numel() + BATCH * s * s * co + w.numel()) * 2
+        b, by = bound_ms(flops, nbytes)
+        t_ops += flops / PEAK_BF16_FLOPS * 1e3
+        t_bytes += nbytes / PEAK_BYTES * 1e3
+        shapes.append({"conv": name, "x": [BATCH, h, h, c], "co": co, "ms": ms,
+                       "plain_ms": pms, "library_ms": lms, "bound_ms": b, "bound_by": by,
+                       "gflop": flops / 1e9, "mbytes": nbytes / 1e6, **acc})
+        for k, v in (("ms", ms), ("plain_ms", pms), ("library_ms", lms), ("bound_ms", b)):
+            k4[k] += v
+        k4["max_abs_err"] = max(k4["max_abs_err"], acc["max_abs_err"])
+        emit({"phase": "kernel_check", "kernel": "conv_s2", **shapes[-1]})
+    return dict(
+        name="conv_s2", route="cuda", source="ppyolo_tpu_torch/csrc/conv_s2.cu",
+        replaces="ppyolo_tpu/ops/strided_conv_pallas.py:100",
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        per="b8 pair (one stage3_0 + one stage4_0 launch; library: cuDNN F.conv2d)",
+        shapes=shapes, **k4)
+
+
+def phase_probe() -> dict:
+    """The probe's entry point at b8 bf16, short scan; the counts zeroed
+    just before and read just after."""
+    from ppyolo_tpu_torch.tools import probe_strided_conv
+
+    zero_counts()
+    summary = probe_strided_conv.main(PROBE_ARGS)
+    launches = read_counts()
+    emit({"phase": "probe", "args": PROBE_ARGS, "launches": launches, "summary": summary})
+    if summary["failed"]:
+        raise AssertionError(f"probe variants failed: {summary['failed']}")
+    if launches["conv_s2"] == 0 or any(v for k, v in launches.items() if k != "conv_s2"):
+        raise AssertionError(f"probe launch counts {launches}: K4 and only K4 must launch")
+    return launches
 
 
 def kernel_k3(gen, dev) -> dict:
@@ -340,8 +431,6 @@ def phase_serving(smi: str):
     import torch
     from configs import PPYOLO_2x_Config
     from ppyolo_tpu_torch.eval.detector import Detector
-    from ppyolo_tpu_torch.ops.deform_conv_cuda import dcn_fwd
-    from ppyolo_tpu_torch.ops.stem import fused_stem
 
     cfg = PPYOLO_2x_Config()
     t0 = time.time()
@@ -360,8 +449,7 @@ def phase_serving(smi: str):
             raise AssertionError(f"batch {i}: bad output {out.shape}")
         return out
 
-    dcn_fwd.launches = 0
-    fused_stem.launches = 0
+    zero_counts()
     torch.cuda.synchronize()
     for i in range(WARMUP_BATCHES):
         serve(i)
@@ -374,8 +462,9 @@ def phase_serving(smi: str):
             lat.append(time.perf_counter() - t)
         window_ips.append(BATCH * WINDOW_BATCHES / (time.perf_counter() - tw))
     n_batches = WARMUP_BATCHES + WINDOWS * WINDOW_BATCHES
-    launches = {"dcn_fwd": dcn_fwd.launches, "fused_stem": fused_stem.launches}
-    if launches != {"dcn_fwd": 3 * n_batches, "fused_stem": n_batches}:
+    launches = read_counts()
+    if launches != {"dcn_fwd": 3 * n_batches, "dcn_bwd": 0, "fused_stem": n_batches,
+                    "conv_s2": 0}:
         raise AssertionError(f"launch counts {launches} for {n_batches} batches")
     ips = BATCH * len(lat) / sum(lat)
     kept = int((out[..., 0] >= 0).sum())
@@ -467,7 +556,8 @@ def phase_profile(det, images, sizes, batch_ms):
 
 
 KERNEL_CLASSES = (   # (class, substrings of the kernel name), first match wins
-    ("port_kernels", ("dcn_fwd_kernel", "dcn_bwd_kernel", "fused_stem_kernel")),
+    ("port_kernels", ("dcn_fwd_kernel", "dcn_bwd_kernel", "fused_stem_kernel",
+                      "conv_s2_")),
     ("conv_gemm", ("xmma", "nvjet", "cutlass", "gemm", "cudnn", "dgrad", "wgrad")),
     ("copy_memset", ("Memcpy", "Memset", "copy_kernel", "CatArray")),
     ("elementwise_reduce", ("at::native",)),
@@ -526,8 +616,6 @@ def phase_training(smi: str):
     batch iterator, which synchronizes at each window's edge."""
     import numpy as np
     import torch
-    from ppyolo_tpu_torch.ops.deform_conv_cuda import dcn_bwd, dcn_fwd
-    from ppyolo_tpu_torch.ops.stem import fused_stem
     from ppyolo_tpu_torch.train.loop import run_training
 
     cfg = train_config()
@@ -549,13 +637,12 @@ def phase_training(smi: str):
     logged = []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    dcn_fwd.launches = dcn_bwd.launches = fused_stem.launches = 0
+    zero_counts()
     state, eval_sd = run_training(cfg, batches(), device="cuda", max_iters=n_steps,
                                   model=model, log_fn=lambda i, v: logged.append((i, v)))
     torch.cuda.synchronize()
-    launches = {"dcn_fwd": dcn_fwd.launches, "dcn_bwd": dcn_bwd.launches,
-                "fused_stem": fused_stem.launches}
-    want = {"dcn_fwd": 3 * n_steps, "dcn_bwd": 3 * n_steps, "fused_stem": 0}
+    launches = read_counts()
+    want = {"dcn_fwd": 3 * n_steps, "dcn_bwd": 3 * n_steps, "fused_stem": 0, "conv_s2": 0}
     if launches != want:
         raise AssertionError(f"training launch counts {launches} for {n_steps} steps, "
                              f"want {want}")
@@ -725,11 +812,12 @@ def main() -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         phase_build()
         rows = phase_kernels()
-        det, images, sizes, batch_ms, launches = phase_serving(smi)
+        counts = {"probe": phase_probe()}
+        det, images, sizes, batch_ms, counts["serving"] = phase_serving(smi)
         phase_profile(det, images, sizes, batch_ms)
         del det
         torch.cuda.empty_cache()
-        state, cfg, host, step_ms, train_launches = phase_training(smi)
+        state, cfg, host, step_ms, counts["training"] = phase_training(smi)
         phase_train_profile(state, cfg, host, step_ms)
         del state
         torch.cuda.empty_cache()
@@ -741,8 +829,8 @@ def main() -> int:
         print(f"chip_smoke FAILED: {type(e).__name__}: {e}", file=sys.stderr, flush=True)
         return 1
     for k, row in rows.items():   # each path's counts, read just after it ran
-        by_path = {"serving": launches.get(k, 0), "training": train_launches[k]}
-        row["launches"] = by_path["training" if k == "dcn_bwd" else "serving"]
+        by_path = {path: c[k] for path, c in counts.items()}
+        row["launches"] = by_path[MAIN_PATH[k]]
         row["launches_by_path"] = by_path
     emit({"kernels": list(rows.values())})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

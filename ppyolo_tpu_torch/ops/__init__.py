@@ -1,1 +1,2 @@
-"""Tensor ops of the port: conv cell, DCNv2, stem, pooling, decode, NMS."""
+"""Tensor ops of the port: conv cell, DCNv2, stem, strided conv, pooling,
+decode, NMS."""

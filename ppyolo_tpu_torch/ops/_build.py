@@ -22,7 +22,7 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("dcn_fwd", "dcn_bwd", "fused_stem")
+SOURCES = ("dcn_fwd", "dcn_bwd", "fused_stem", "conv_s2")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
 

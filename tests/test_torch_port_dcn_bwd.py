@@ -29,7 +29,7 @@ import torch
 from ppyolo_tpu.ops.deform_conv import deform_conv2d as jax_dcn
 from ppyolo_tpu.ops.deform_conv_pallas import _dcn_bwd_pallas
 
-from ppyolo_tpu_torch.ops import deform_conv_cuda, stem
+from ppyolo_tpu_torch.ops import deform_conv_cuda, stem, strided_conv
 from ppyolo_tpu_torch.ops.conv import ConvNormAct
 from ppyolo_tpu_torch.ops.deform_conv import (DeformConv2dFunction, dcn_backward,
                                               deform_conv2d, deform_conv2d_plain,
@@ -177,7 +177,7 @@ def test_grads_reach_x_offsets_and_weight_through_conv_norm_act():
         assert not needs_grad(x, params[0], om)
 
 
-@pytest.mark.parametrize("name", ["dcn_fwd", "dcn_bwd", "fused_stem"])
+@pytest.mark.parametrize("name", ["dcn_fwd", "dcn_bwd", "fused_stem", "conv_s2"])
 def test_launch_argtypes_match_the_c_signatures(name):
     """The ctypes argtypes of each kernel's wrapper follow its extern "C"
     signature in csrc/ (a pointer per pointer, an int per int): ctypes does
@@ -186,5 +186,6 @@ def test_launch_argtypes_match_the_c_signatures(name):
     sig = re.search(r'extern "C" int %s_launch\((.*?)\)' % name, src, re.S).group(1)
     want = [ctypes.c_void_p if "*" in p else ctypes.c_int for p in sig.split(",")]
     assert all("*" in p or p.split()[0] == "int" for p in sig.split(","))
-    got = stem._ARGTYPES if name == "fused_stem" else deform_conv_cuda._ARGTYPES[name]
+    got = {"fused_stem": stem._ARGTYPES,
+           "conv_s2": strided_conv._ARGTYPES}.get(name) or deform_conv_cuda._ARGTYPES[name]
     assert got == want

@@ -140,3 +140,50 @@ def test_dcn_function_grads_match_autograd_of_plain(stride):
     for name, a, b in zip(("x", "weight", "om"), got, want):
         assert a is not None and a.shape == b.shape, name
         assert _close(a, b), name
+
+
+def _conv_s2_inputs(seed, n, h, c, co, dtype, dev):
+    r = np.random.RandomState(seed)
+    x = r.randn(n, h, h, c).astype(np.float32)
+    w = (r.randn(co, c, 3, 3) * (2.0 / (9 * c)) ** 0.5).astype(np.float32)
+    return _nchw(x, dtype).to(dev), torch.from_numpy(w).to(dev, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 24, 16, 32), (1, 10, 24, 40), (2, 152, 128, 128),
+                                   (2, 76, 256, 256)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_conv_s2_kernel_matches_plain(shape, dtype):
+    """K4 against conv_s2_phase: (1,10,10,24->40) leaves a ragged tail of
+    output pixels and of output channels; the last two are the probe's
+    stage3_0 and stage4_0 convs at batch 2."""
+    from ppyolo_tpu_torch.ops.strided_conv import conv_s2, conv_s2_phase
+
+    dev = _cuda_or_skip()
+    n, h, c, co = shape
+    x, w = _conv_s2_inputs(6, n, h, c, co, dtype, dev)
+    before = conv_s2.launches
+    got = conv_s2(x, w)
+    assert conv_s2.launches == before + 1
+    want = conv_s2_phase(x, w)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape == (n, co, h // 2, h // 2)
+    assert _close(got, want)
+    # the padded border: row 0 and column 0 on their own
+    assert _close(got[:, :, 0], want[:, :, 0]) and _close(got[:, :, :, 0], want[:, :, :, 0])
+
+
+@pytest.mark.gpu
+def test_conv_s2_kernel_layout_grad_and_channel_checks():
+    from ppyolo_tpu_torch.ops.strided_conv import conv_s2
+
+    dev = _cuda_or_skip()
+    x, w = _conv_s2_inputs(7, 2, 24, 16, 32, torch.bfloat16, dev)
+    assert x.is_contiguous(memory_format=torch.channels_last)
+    # an NCHW-contiguous input is made channels_last before the kernel reads it
+    assert torch.equal(conv_s2(x.contiguous(), w), conv_s2(x, w))
+    with pytest.raises(RuntimeError, match="no backward"):
+        conv_s2(x.detach().clone().requires_grad_(), w)
+    xc, wc = _conv_s2_inputs(8, 1, 8, 12, 16, torch.bfloat16, dev)
+    with pytest.raises(ValueError, match="C % 8 == 0"):
+        conv_s2(xc, wc)
