@@ -6,39 +6,196 @@
 // pays a full extra HBM round trip of the input to write them.  On Hopper the
 // stride is only address arithmetic, so no plane is materialised: the conv is
 // one GEMM with M = N*oH*oW output pixels, N = Co and K = 9 taps x C, whose A
-// tile each block loads straight from the NHWC input.  Output pixel (y, x) at
-// tap (i, j) reads input pixel (2y+i-1, 2x+j-1) as 16-byte vectors along C;
-// row and column -1 read as zero (with an even H the bottom and right pad is
-// never reached, but the bound is checked anyway).  The B tile comes from the
-// packed weight [9*C, Co] (tap-major, then input channel).
-//
-// bf16: wmma 16x16x16 on the tensor cores, fp32 accumulation, one bf16 store
-// (the Pallas kernel's fp32 accumulator cast to x's dtype).  fp32: FMA on the
-// CUDA cores, nothing cast.
+// tile each block gathers straight from the NHWC input.  Output pixel (y, x)
+// at tap (i, j) reads input pixel (2y+i-1, 2x+j-1) as 16-byte vectors along
+// C; row and column -1 read as zero (with an even H the bottom and right pad
+// is never reached, but the bound is checked anyway).
 //
 // Bound on the H100 at the ppyolo_2x serving shapes (b8 bf16, 13.6 GFLOP a
 // launch): stage3_0 [8,152,152,128] moves 59.4 MB (17.7 us at 3.35 TB/s,
 // bytes), stage4_0 [8,76,76,256] 30.8 MB against 13.8 us of tensor-core work
-// (operations).  This first version is simple rather than fast: register
-// double buffering of one chunk, no cp.async/TMA pipeline and no wgmma.  Each
-// input pixel is read by up to 4 output pixels' taps and by every Co/BN column
-// block, from L2.
+// (operations).
 //
-// Layouts: x NHWC, y NHWC [N, oH, oW, Co] in x's dtype; w [9*C, Co] in x's
-// dtype.  Requires C % 8 == 0, Co % 8 == 0 and 16-byte aligned pointers
-// (checked by the wrapper).
+// bf16 design (what it does about the bound):
+// * The product is wgmma m64n128k16 (bf16 in, fp32 accumulators), A and B
+//   both from shared memory in the 128-byte swizzle (sm90.cuh): the only
+//   instruction that reaches the tensor cores' full rate on Hopper.  Two
+//   consumer warpgroups, each 64 of the block's 128 output pixels x all 128
+//   of its output channels.
+// * K runs tap by tap (9), and inside a tap over C in chunks of 64 (one
+//   128-byte swizzle row per pixel per chunk).  Each thread keeps its four A
+//   rows' tap-(0,0) offsets and bounds from the start, and its position in
+//   (tap, chunk) as counters, so a 16-byte load costs an add and two compares;
+//   C = 16, 24 or 40 leave part of a chunk empty, which the copy zero-fills.
+// * A (the gather) and B (the packed weight, K-major [Co, 9*C] from
+//   pack_conv_s2_weight) both go through cp.async.cg 16 bytes at a time into
+//   the swizzled slot; src-size 0 zero-fills the pad, the M and Co tails and
+//   the K tail.  TMA would serve B alone (A is a gather whose rows jump at
+//   image borders; TMA's im2col mode would also need a fifth descriptor per
+//   launch), and the 4 x 16-byte copies per thread per chunk keep the issue
+//   cost of cp.async small next to the chunk's 4 wgmma.
+// * A ring of 4 stages (32 KB each: A 128 x 64 and B 128 x 64 bf16): while
+//   wgmma runs on chunk k, the loads of chunks k+1 and k+2 are in flight and
+//   wgmma of chunk k-1 may still run (commit_group / wait_group 1); one
+//   barrier per chunk frees the stage of chunk k-2 for chunk k+2.
+// * Tiles: BM = BN = 128, so the A tile is read once per Co/128 column
+//   block (once at stage3_0, twice at stage4_0).  129 KB of shared memory and
+//   256 threads give one block per SM: stage3_0 is 361 blocks (2.73 waves of
+//   132), stage4_0 182 (1.38 waves; BN = 256 would give 91 blocks, one wave on
+//   69% of the SMs, the same time).
+// * Epilogue: fp32 -> bf16 once, through a shared-memory tile, 16-byte
+//   stores predicated on the M and Co tails.
+//
+// fp32: FMA on the CUDA cores, nothing cast (on par with cuDNN in fp32).
+//
+// Layouts: x NHWC, y NHWC [N, oH, oW, Co] in x's dtype; bf16 weight
+// [Co, 9*C] (K-major), fp32 weight [9*C, Co] (tap-major, then input channel).
+// Requires C % 8 == 0, Co % 8 == 0 and 16-byte aligned pointers (checked by
+// the wrapper).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
+#include "sm90.cuh"
 
 namespace {
 
 struct Geom {
   int H, W, C, oH, oW, Co, M, K;  // M = N*oH*oW output pixels, K = 9*C
 };
+
+// ---- bf16: wgmma on the tensor cores, cp.async ring -------------------------
+
+constexpr int BM = 128;                      // output pixels per block
+constexpr int BN = 128;                      // output channels per block
+constexpr int BK = 64;                       // GEMM depth per chunk (128 bytes)
+constexpr int STAGES = 4;                    // ring depth
+constexpr int THREADS = 256;                 // 2 warpgroups x 64 pixels
+constexpr int A_BYTES = BM * BK * 2;
+constexpr int B_BYTES = BN * BK * 2;
+constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+constexpr int OUT_LD = BN + 8;               // epilogue tile row, bf16 elements
+constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 1024;  // + 1024-byte alignment slack
+static_assert(BM * OUT_LD * 2 <= STAGES * STAGE_BYTES, "epilogue tile exceeds the ring");
+static_assert(THREADS == 2 * BM && THREADS == 2 * BN, "4 rows of A and B per thread");
+
+__global__ void __launch_bounds__(THREADS, 1)
+conv_s2_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+                    __nv_bfloat16* __restrict__ y, Geom g) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = sm90::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // swizzle atoms on 1024-byte boundaries
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int p0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  // copy role: rows row0 + 32 i (i < 4) of the A and B tiles, 16-byte chunk `chunk`
+  const int row0 = tid / 8, chunk = tid % 8;
+
+  long long a_off[4];  // element offset of the row's tap (0, 0) input pixel
+  int a_iy[4], a_ix[4];
+  const __nv_bfloat16* b_row[4];
+  bool b_live[4];
+  const int hw = g.oH * g.oW;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int p = p0 + row0 + 32 * i;
+    const bool live = p < g.M;
+    const int pp = live ? p : 0;
+    const int n = pp / hw, r = pp - n * hw;
+    const int oy = r / g.oW, ox = r - oy * g.oW;
+    a_iy[i] = live ? 2 * oy - 1 : -(1 << 30);  // a dead row fails every bound check
+    a_ix[i] = 2 * ox - 1;
+    a_off[i] = ((long long)(n * g.H + 2 * oy - 1) * g.W + 2 * ox - 1) * g.C;
+    const int co = n0 + row0 + 32 * i;
+    b_live[i] = co < g.Co;
+    b_row[i] = w + (size_t)(b_live[i] ? co : 0) * g.K;
+  }
+
+  const int cchunks = (g.C + BK - 1) / BK;
+  const int KT = 9 * cchunks;
+  int ld_tap = 0, ld_cc = 0, ld_stage = 0;  // the next chunk to load, in order
+  auto load_next = [&]() {
+    const int dy = ld_tap / 3, dx = ld_tap - 3 * dy;
+    const int c = ld_cc * BK + chunk * 8;
+    const bool c_ok = c < g.C;
+    const long long tap_off = (long long)(dy * g.W + dx) * g.C + c;
+    const uint32_t sa = base + ld_stage * STAGE_BYTES, sb = sa + A_BYTES;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = row0 + 32 * i;
+      const int iy = a_iy[i] + dy, ix = a_ix[i] + dx;
+      const bool ok = c_ok && (unsigned)iy < (unsigned)g.H && (unsigned)ix < (unsigned)g.W;
+      sm90::cp_async_16(sa + sm90::swz128(r, chunk), ok ? x + a_off[i] + tap_off : x,
+                        ok ? 16 : 0);
+      const bool okb = c_ok && b_live[i];
+      sm90::cp_async_16(sb + sm90::swz128(r, chunk), okb ? b_row[i] + ld_tap * g.C + c : w,
+                        okb ? 16 : 0);
+    }
+    if (++ld_cc == cchunks) {
+      ld_cc = 0;
+      ++ld_tap;
+    }
+    ld_stage = ld_stage == STAGES - 1 ? 0 : ld_stage + 1;
+  };
+
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+
+  // prologue: chunks 0 .. STAGES-3 in flight
+#pragma unroll
+  for (int s = 0; s < STAGES - 2; ++s) {
+    if (s < KT) load_next();
+    sm90::cp_async_commit();
+  }
+  int stage = 0;
+  for (int kt = 0; kt < KT; ++kt) {
+    sm90::cp_async_wait<STAGES - 3>();  // this thread's copies of chunk kt have landed
+    sm90::fence_proxy_async();
+    // every thread's copies of chunk kt are visible, and every warpgroup has
+    // waited for its wgmma of chunk kt-2, whose stage the next load reuses
+    __syncthreads();
+    if (kt + STAGES - 2 < KT) load_next();
+    sm90::cp_async_commit();
+    const uint32_t sa = base + stage * STAGE_BYTES;
+    const uint64_t da = sm90::desc_sw128(sa + wg * 64 * BK * 2);
+    const uint64_t db = sm90::desc_sw128(sa + A_BYTES);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < BK / 16; ++ks)  // k16 step: 32 bytes further in the atom
+      sm90::wgmma_m64n128k16_ss(acc, da + 2 * ks, db + 2 * ks);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<1>();  // chunk kt's product may run on; chunk kt-1's is done
+    stage = stage == STAGES - 1 ? 0 : stage + 1;
+  }
+  sm90::wgmma_wait<0>();
+  sm90::cp_async_wait<0>();
+  __syncthreads();  // the ring is dead: reuse it for the output tile
+
+  // accumulator (row, col) -> bf16 tile [BM][OUT_LD], one rounding
+  __nv_bfloat16* const out = reinterpret_cast<__nv_bfloat16*>(smem_raw + (base - raw));
+  const int lane = tid % 32;
+  const int r0 = wg * 64 + ((tid % 128) / 32) * 16 + lane / 4;
+  const int c0 = 2 * (lane % 4);
+#pragma unroll
+  for (int i = 0; i < BN / 8; ++i) {
+    *reinterpret_cast<__nv_bfloat162*>(out + r0 * OUT_LD + 8 * i + c0) =
+        __floats2bfloat162_rn(acc[4 * i], acc[4 * i + 1]);
+    *reinterpret_cast<__nv_bfloat162*>(out + (r0 + 8) * OUT_LD + 8 * i + c0) =
+        __floats2bfloat162_rn(acc[4 * i + 2], acc[4 * i + 3]);
+  }
+  __syncthreads();
+  for (int v = tid; v < BM * BN / 8; v += THREADS) {
+    const int r = v / (BN / 8), c = (v % (BN / 8)) * 8;
+    const int p = p0 + r;
+    if (p < g.M && n0 + c < g.Co)
+      *reinterpret_cast<uint4*>(y + (size_t)p * g.Co + n0 + c) =
+          *reinterpret_cast<const uint4*>(out + r * OUT_LD + c);
+  }
+}
+
+// ---- fp32: FMA on the CUDA cores -------------------------------------------
 
 // One output pixel's image base (in pixels) and the top-left input pixel of
 // its 3x3 window.
@@ -63,7 +220,7 @@ __device__ __forceinline__ Pix pixel(int p, const Geom& g) {
 
 // Element offset in x of GEMM column k (tap k / C, channel k % C) for pixel q,
 // or -1 where it reads the zero pad or lies past K.  The wrapper's C % 8 == 0
-// keeps every 8-wide (and 4-wide) vector inside one tap.
+// keeps every 4-wide vector inside one tap.
 __device__ __forceinline__ long long x_offset(const Pix& q, int k, const Geom& g) {
   if (!q.live || k >= g.K) return -1;
   const int tap = k / g.C, c = k - tap * g.C;
@@ -71,122 +228,6 @@ __device__ __forceinline__ long long x_offset(const Pix& q, int k, const Geom& g
   if (iy < 0 || ix < 0 || iy >= g.H || ix >= g.W) return -1;
   return (long long)(q.base + (size_t)iy * g.W + ix) * g.C + c;
 }
-
-// ---- bf16: wmma on the tensor cores ----------------------------------------
-
-constexpr int BM = 128;       // output pixels per block
-constexpr int BN = 64;        // output channels per block
-constexpr int BK = 32;        // GEMM depth per chunk
-constexpr int THREADS = 256;  // 8 warps in 4 x 2, each a 32 x 32 piece
-constexpr int A_LD = BK + 8;  // padded leading dims (multiples of 8 elements)
-constexpr int B_LD = BN + 8;
-constexpr int C_LD = BN + 4;
-
-constexpr int A_ELEMS = BM * A_LD;
-constexpr int B_ELEMS = BK * B_LD;
-constexpr int TILE_BYTES = 2 * (A_ELEMS + B_ELEMS) * 2;  // two A and two B buffers
-constexpr int C_BYTES = BM * C_LD * 4;
-constexpr int SMEM_BYTES = TILE_BYTES > C_BYTES ? TILE_BYTES : C_BYTES;
-
-__global__ void __launch_bounds__(THREADS)
-conv_s2_bf16_kernel(const __nv_bfloat16* __restrict__ x,
-                    const __nv_bfloat16* __restrict__ w,
-                    __nv_bfloat16* __restrict__ y, Geom g) {
-  // A [2][BM][A_LD] then B [2][BK][B_LD]; the epilogue's fp32 tile
-  // [BM][C_LD] reuses the same bytes
-  __shared__ __align__(128) unsigned char smem[SMEM_BYTES];
-  __nv_bfloat16* const a_buf = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* const b_buf = a_buf + 2 * A_ELEMS;
-  float* const c_buf = reinterpret_cast<float*>(smem);
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int wm = warp / 2, wn = warp % 2;
-  const int p0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-
-  // A role: pixel rows ar and ar + 64, GEMM columns ac..ac+7 of the chunk
-  const int ar = tid / 4, ac = (tid % 4) * 8;
-  const Pix q0 = pixel(p0 + ar, g), q1 = pixel(p0 + ar + 64, g);
-  // B role: chunk row br, output columns bc..bc+7
-  const int br = tid / 8, bc = (tid % 8) * 8;
-  const bool b_col = n0 + bc < g.Co;
-
-  uint4 ra0, ra1, rb;
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  auto load = [&](int k0) {
-    const long long o0 = x_offset(q0, k0 + ac, g);
-    const long long o1 = x_offset(q1, k0 + ac, g);
-    ra0 = o0 < 0 ? zero : __ldg(reinterpret_cast<const uint4*>(x + o0));
-    ra1 = o1 < 0 ? zero : __ldg(reinterpret_cast<const uint4*>(x + o1));
-    const int kr = k0 + br;
-    rb = (kr < g.K && b_col)
-             ? __ldg(reinterpret_cast<const uint4*>(w + (size_t)kr * g.Co + n0 + bc))
-             : zero;
-  };
-  auto store = [&](int buf) {
-    __nv_bfloat16* const As = a_buf + buf * A_ELEMS;
-    *reinterpret_cast<uint4*>(As + ar * A_LD + ac) = ra0;
-    *reinterpret_cast<uint4*>(As + (ar + 64) * A_LD + ac) = ra1;
-    *reinterpret_cast<uint4*>(b_buf + buf * B_ELEMS + br * B_LD + bc) = rb;
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  const int KT = (g.K + BK - 1) / BK;
-  load(0);
-  store(0);
-  __syncthreads();
-  for (int kt = 0; kt < KT; ++kt) {
-    const int cur = kt & 1;
-    if (kt + 1 < KT) load((kt + 1) * BK);  // next chunk's loads in flight
-    const __nv_bfloat16* As = a_buf + cur * A_ELEMS;
-    const __nv_bfloat16* Bs = b_buf + cur * B_ELEMS;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], As + (wm * 32 + i * 16) * A_LD + kk, A_LD);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], Bs + kk * B_LD + wn * 32 + j * 16, B_LD);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    // the other buffer was last read before the previous barrier
-    if (kt + 1 < KT) store(cur ^ 1);
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(c_buf + (wm * 32 + i * 16) * C_LD + wn * 32 + j * 16,
-                              acc[i][j], C_LD, wmma::mem_row_major);
-  __syncthreads();
-  // 8 channels per thread per pass: one rounding to bf16, one 16-byte store
-  for (int v = tid; v < BM * BN / 8; v += THREADS) {
-    const int r = v / (BN / 8), c = (v % (BN / 8)) * 8;
-    const int p = p0 + r;
-    if (p >= g.M || n0 + c >= g.Co) continue;
-    uint4 packed;
-    __nv_bfloat16* pk = reinterpret_cast<__nv_bfloat16*>(&packed);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) pk[e] = __float2bfloat16(c_buf[r * C_LD + c + e]);
-    *reinterpret_cast<uint4*>(y + (size_t)p * g.Co + n0 + c) = packed;
-  }
-}
-
-// ---- fp32: FMA on the CUDA cores -------------------------------------------
 
 constexpr int FM = 64;        // output pixels per block
 constexpr int FN = 64;        // output channels per block
@@ -257,6 +298,18 @@ conv_s2_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
 
 }  // namespace
 
+// Blocks of the bf16 kernel that fit one SM (cudaOccupancy...), or minus the
+// CUDA error.
+extern "C" int conv_s2_bf16_blocks_per_sm() {
+  cudaError_t err = cudaFuncSetAttribute(
+      conv_s2_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, conv_s2_bf16_kernel,
+                                                        THREADS, SMEM_BYTES);
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
+}
+
 // x, w and y are fp32 when is_f32, else bf16.
 extern "C" int conv_s2_launch(const void* x, const void* w, void* y, int is_f32,
                               int N, int H, int W, int C, int Co, void* stream) {
@@ -276,8 +329,11 @@ extern "C" int conv_s2_launch(const void* x, const void* w, void* y, int is_f32,
         static_cast<const float*>(x), static_cast<const float*>(w),
         static_cast<float*>(y), g);
   } else {
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        conv_s2_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
     dim3 grid((g.M + BM - 1) / BM, (Co + BN - 1) / BN);
-    conv_s2_bf16_kernel<<<grid, THREADS, 0, s>>>(
+    conv_s2_bf16_kernel<<<grid, THREADS, SMEM_BYTES, s>>>(
         static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
         static_cast<__nv_bfloat16*>(y), g);
   }

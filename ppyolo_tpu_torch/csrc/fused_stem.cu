@@ -4,13 +4,9 @@
 // _stem_kernel): conv1_1 3->32 3x3/s2, conv1_2 32->32 3x3, conv1_3 32->64 3x3
 // (each with its BN folded into weight and fp32 bias, then relu, fp32
 // accumulation and a bf16 round) and the 3x3/s2/p1 max-pool, in one kernel.
-// The TPU kernel packs pixels into 128-lane rows to feed its MXU; here each
-// block owns one image and a T x T tile of pooled outputs and keeps the whole
-// receptive field in shared memory: the (4T+11)^2 x 3 input halo, the
-// (2T+5)^2 x 32 conv1_1, (2T+3)^2 x 32 conv1_2 and (2T+1)^2 x 64 conv1_3 tiles
-// (the halo is recomputed by neighbouring blocks), and all the weights.  Only
+// The TPU kernel packs pixels into 128-lane rows to feed its MXU; here only
 // the image is read and only the pooled [N, S/4, S/4, 64] map is written to
-// device memory.
+// device memory, and every intermediate row lives in shared memory.
 //
 // A conv position outside the conv's output range is the next conv's zero
 // padding and is stored as 0, not relu(bias) (the masks of stem_pallas.py
@@ -19,259 +15,411 @@
 //
 // Bound on the H100: at batch 8 x 608^2 the three convs are 42.2 GFLOP against
 // ~41 MB of traffic, so the arithmetic bounds it (43 us at the bf16
-// tensor-core peak).  conv1_2 and conv1_3 (98% of the work) run on the
-// tensor cores as implicit GEMMs straight out of the shared-memory tiles:
-// 16 consecutive pixels of one tile row, at one tap, are a row-major 16 x 32
-// bf16 matrix with leading dimension 32, so wmma loads them in place (a
-// row's two 16-pixel fragments overlap when the tile is narrower than 32).
-// conv1_1 (K = 27) stays fp32 FMA on the CUDA cores.  Not yet done: wgmma,
-// asynchronous tile loads, more than one block per SM.
+// tensor-core peak).  What the design does about it:
 //
-// Layouts: x NHWC bf16 [N, H, W, 3]; w1 fp32 [3][3][3][32]; w2 bf16
-// [3][3][32][32], w3 bf16 [3][3][32][64] (HWIO); b1, b2, b3 fp32; y NHWC bf16
+// * A block owns a strip of PW = 14 pooled columns and a segment of pooled
+//   rows, and walks down it.  Step t of the walk is conv1_1 rows 2t+2..2t+3,
+//   conv1_2 rows 2t+1..2t+2, conv1_3 rows 2t..2t+1 and pooled row t.  Rolling
+//   rings in shared memory keep the last rows of the input (16 rows) and of
+//   each conv (8), so no row is computed twice inside a segment.  Only the
+//   strip's side halos (29 conv1_3 columns for 28 useful, 31 of conv1_2, 33
+//   of conv1_1) and a segment's three warm-up steps are recomputed: at
+//   b8@608 (11 strips x 3 segments of 51 rows) 1.09x the useful work
+//   weighted by FLOPs, 1.11x with the ragged last strip.
+// * Warp specialisation, one barrier per stage.  In stage u warpgroup 0 runs
+//   conv1_3 of step u-2; warpgroup 1 conv1_2 of step u-1 and, while its
+//   products run, the last conv1_1 tile of step u and the max-pool of step
+//   u-3; warpgroup 2 issues the cp.async loads of step u+1's four input rows,
+//   runs conv1_1's other four tiles of step u, then waits for the loads and
+//   repacks the rows.  Each phase reads only rows that earlier stages wrote,
+//   so the three warpgroups run side by side and the next rows' loads are in
+//   flight while they compute.
+// * conv1_2 and conv1_3 are implicit GEMMs on wgmma with the full N of the
+//   layer (m64n32k16, m64n64k16): M = a step's 2 rows x 31 (29) pixels,
+//   padded to 64; K = 9 taps x 32 channels = 18 k16 steps.  A tap shifts the
+//   A rows by one 64-byte pixel, which a swizzled shared-memory A operand
+//   cannot follow, so A comes from registers: ldmatrix reads each GEMM row at
+//   its own tap-shifted pixel (the rings' 32-channel pixels keep 16-byte chunk
+//   c at c ^ ((pixel / 2) % 4), so the 8 rows of an ldmatrix hit 8 bank
+//   groups).  B, the packed K-major weights, sits in shared memory in the
+//   128-byte swizzle for the whole block.  Bias, relu, the range mask and the
+//   bf16 round are applied to the accumulator registers.
+// * conv1_1 runs on mma.sync m16n8k16 (M = 2 x 33 pixels in 5 m16 tiles,
+//   N = 32).  The input's 6-byte pixels are repacked once, zero outside the
+//   image, into 8-byte (c0, c1, c2, 0) pixels, so a kernel row ky is 3
+//   neighbouring pixels = 12 contiguous values and each A-fragment register is
+//   one 4-byte load; K = 3 k16 steps, one per ky.
+// * 141 KB of shared memory and 384 threads (168 registers each): one block
+//   per SM, 264 blocks at b8@608 (two waves of 132).
+//
+// Layouts: x NHWC bf16 [N, H, W, 3] (16-byte aligned); w1 fp32 [27][32]
+// (HWIO flattened); w2 bf16 [32][288], w3 bf16 [64][288] (K-major: column
+// tap * 32 + ci); bias fp32 [128] = b1 | b2 | b3; y NHWC bf16
 // [N, S4h, S4w, 64].
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
+#include "sm90.cuh"
 
 namespace {
 
-constexpr int T = 8;              // pooled outputs per block edge
-constexpr int R3 = 2 * T + 1;     // conv1_3 tile edge
-constexpr int R2 = 2 * T + 3;     // conv1_2 tile edge
-constexpr int R1 = 2 * T + 5;     // conv1_1 tile edge
-constexpr int R0 = 4 * T + 11;    // input tile edge
-constexpr int THREADS = 512;
-constexpr int WARPS = THREADS / 32;
+constexpr int PW = 14;              // pooled columns per strip
+constexpr int W3 = 2 * PW + 1;      // conv1_3 strip width (29)
+constexpr int W2 = W3 + 2;          // conv1_2 (31)
+constexpr int W1 = W3 + 4;          // conv1_1 (33)
+constexpr int W0 = 2 * W1 + 1;      // input (67)
+constexpr int THREADS = 384;        // three warpgroups
+constexpr int KSTEPS = 18;          // 9 taps x 32 channels / 16
+constexpr int C1_TILES = (2 * W1 + 15) / 16;  // conv1_1's m16 tiles a step (5)
 
-// Padded leading dimensions (elements) of the tiles the tensor cores read:
-// a power-of-two row stride would put a fragment's 16 rows on the same
-// shared-memory banks.  Multiples of 16 bytes, and 32-byte aligned rows for
-// the activation tiles (a fragment may start at any pixel).
-constexpr int ACT_LD = 48;                          // conv1_1 / conv1_2 tiles, 32 channels
-constexpr int W2_LD = 32 + 8, W3_LD = 64 + 8;       // weight rows [tap][ci][co]
-constexpr int STAGE_LD = 16 + 4;
+constexpr int IN_ROWS = 16;         // input ring
+constexpr int IN_ROW_BYTES = 432;   // 67 pixels x 6 bytes from a 16-byte boundary
+constexpr int IN_BLOCKS = IN_ROW_BYTES / 16;
+constexpr int ACT_ROWS = 8;         // conv rings
+constexpr int C1_ROW = W1 * 64;     // 32 channels bf16 a pixel
+constexpr int C2_ROW = W2 * 64;
+constexpr int C3_ROW = W3 * 128;    // 64 channels
+constexpr int PAD_ROW = W0 * 8;     // input ring of 4-channel pixels
+constexpr int W1B_LD = 56;          // conv1_1 weight row (48 bf16 used): no bank conflicts
 
-constexpr int align128(int b) { return (b + 127) / 128 * 128; }
-constexpr int W2_BYTES = 9 * 32 * W2_LD * 2;        // bf16
-constexpr int W3_BYTES = 9 * 32 * W3_LD * 2;
-constexpr int STAGE_BYTES = WARPS * 16 * STAGE_LD * 4;  // per-warp fp32 accumulator tile
-constexpr int IN_BYTES = align128(R0 * R0 * 3 * 2);
-constexpr int C1_BYTES = align128(R1 * R1 * ACT_LD * 2);
-constexpr int C2_BYTES = align128(R2 * R2 * ACT_LD * 2);
-constexpr int C3_BYTES = align128(R3 * R3 * 64 * 2);
-// conv1_3's tile reuses the input + conv1_1 region, dead by then
-constexpr int ACT_A_BYTES = (IN_BYTES + C1_BYTES) > C3_BYTES ? (IN_BYTES + C1_BYTES) : C3_BYTES;
-constexpr int W1_N = 27 * 32, B_N = 128;
-constexpr int OFF_W3 = W2_BYTES;
-constexpr int OFF_STAGE = OFF_W3 + W3_BYTES;
-constexpr int OFF_ACT = OFF_STAGE + STAGE_BYTES;
-constexpr int OFF_C2 = OFF_ACT + ACT_A_BYTES;
-constexpr int OFF_W1 = OFF_C2 + C2_BYTES;
-constexpr int SMEM_BYTES = OFF_W1 + (W1_N + B_N) * 4;
-static_assert(SMEM_BYTES <= 232448, "stem tile exceeds shared memory");
-static_assert(OFF_W3 % 128 == 0 && OFF_STAGE % 128 == 0 && OFF_ACT % 128 == 0 &&
-              OFF_C2 % 128 == 0 && OFF_W1 % 128 == 0, "shared-memory regions misaligned");
+constexpr int B2_BYTES = 5 * 32 * 128;  // 5 atoms of 64 k (288 used) x 32 rows
+constexpr int B3_BYTES = 5 * 64 * 128;
+constexpr int OFF_B3 = B2_BYTES;
+constexpr int OFF_C3 = OFF_B3 + B3_BYTES;
+constexpr int OFF_C1 = OFF_C3 + ACT_ROWS * C3_ROW;
+constexpr int OFF_C2 = OFF_C1 + ACT_ROWS * C1_ROW;
+constexpr int OFF_IN = OFF_C2 + ACT_ROWS * C2_ROW;
+constexpr int OFF_PAD = OFF_IN + IN_ROWS * IN_ROW_BYTES;
+constexpr int OFF_W1 = OFF_PAD + IN_ROWS * PAD_ROW;
+constexpr int OFF_BIAS = OFF_W1 + 32 * W1B_LD * 2;
+constexpr int SMEM_BYTES = OFF_BIAS + 128 * 4 + 1024;  // + 1024-byte alignment slack
+static_assert(OFF_B3 % 1024 == 0 && OFF_C3 % 16 == 0 && OFF_C1 % 16 == 0 &&
+                  OFF_C2 % 16 == 0 && OFF_IN % 16 == 0 && OFF_PAD % 16 == 0 &&
+                  OFF_W1 % 16 == 0,
+              "shared-memory regions misaligned");
+static_assert(SMEM_BYTES <= 232448, "stem block exceeds shared memory");
+static_assert(IN_ROW_BYTES >= 15 + W0 * 6, "an input row from its 16-byte boundary");
+static_assert(C1_TILES == 5, "conv1_1: a tile for each warp of warpgroup 2, one for warpgroup 1");
 
-// conv1_1 on the CUDA cores: out[OUT_W^2][OUT_LD] from in[IN_W^2][CIN], fp32
-// FMA.  (oy0, ox0) is the absolute output position of tile element (0, 0);
-// positions outside [0, OH) x [0, OW) are stored as 0 (also in conv_wmma).
-template <int CIN, int COUT, int STRIDE, int IN_W, int OUT_W, int OUT_LD>
-__device__ __forceinline__ void conv_layer(const __nv_bfloat16* __restrict__ in,
-                                           __nv_bfloat16* __restrict__ out,
-                                           const float* __restrict__ w,
-                                           const float* __restrict__ b,
-                                           int oy0, int ox0, int OH, int OW) {
-  constexpr int G = COUT / 8;
-  for (int item = threadIdx.x; item < OUT_W * OUT_W * G; item += THREADS) {
-    const int g = item % G, pix = item / G;
-    const int ry = pix / OUT_W, rx = pix % OUT_W;
-    const int ay = oy0 + ry, ax = ox0 + rx;
-    uint4 packed = make_uint4(0u, 0u, 0u, 0u);
-    if (ay >= 0 && ay < OH && ax >= 0 && ax < OW) {
-      float acc[8];
+struct Geom {
+  int H, W, S2h, S2w, S4h, S4w;
+  int seg_rows;          // pooled rows per segment
+  long long x_bytes;     // bytes of x
+};
+
+// Byte offset of input row iy's strip start (column ix0) from the 16-byte
+// boundary below it (x is 16-byte aligned; only the low bits matter, so the
+// arithmetic may wrap).
+__device__ __forceinline__ int row_phase(int n, int iy, int H, int W, int ix0) {
+  return static_cast<int>(
+      ((((unsigned)n * (unsigned)H + (unsigned)iy) * (unsigned)W + (unsigned)ix0) * 6u) & 15u);
+}
+
+// Byte offset of 16-byte chunk c of pixel j in a 32-channel ring row.
+__device__ __forceinline__ int act_off(int j, int c) {
+  return j * 64 + ((c ^ ((j >> 1) & 3)) << 4);
+}
+
+// One conv (conv1_2 or conv1_3) of a step on the warpgroup's wgmma: output
+// rows r0, r0 + 1 (ring `out`, strip width WO, NOUT channels) from the
+// 32-channel ring `in` (rows r0-1 .. r0+2, strip width WO + 2), weights B at
+// shared address `b` (swizzled K-major [NOUT][288]), biases `bias`.
+// Positions outside [0, S2h) x [0, S2w) are stored as 0.  Outputs of conv1_3
+// (NOUT = 64) go to 128-byte pixels with chunk c at c ^ (pixel % 8), those of
+// conv1_2 to the 32-channel layout of act_off.  `during()` runs while the
+// products are in flight.
+template <int WO, int NOUT, typename F>
+__device__ __forceinline__ void conv_wgmma(const Geom& g, uint32_t in,
+                                           int in_row, uint32_t b, unsigned char* out,
+                                           int out_row, const float* bias, int r0, int c0,
+                                           F&& during) {
+  const int t = threadIdx.x % 128, lane = t % 32, wq = t / 32;
+  // ldmatrix role: GEMM row am (pixels past 2 x WO read pixel 0; discarded)
+  const int am = 16 * wq + (lane & 15);
+  const int arr = am < 2 * WO ? am / WO : 0, ajj = am < 2 * WO ? am % WO : 0;
+  float acc[NOUT / 2];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[j] = 0.f;
+  for (int e = 0; e < NOUT / 2; ++e) acc[e] = 0.f;
+  const uint64_t db = sm90::desc_sw128(b);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    uint32_t a[KSTEPS / 2][4];
+#pragma unroll
+    for (int i = 0; i < KSTEPS / 2; ++i) {
+      const int s = half * (KSTEPS / 2) + i;  // tap s / 2, channels 16 (s % 2)..
+      const int tap = s >> 1, dy = tap / 3, dx = tap - 3 * dy;
+      sm90::ldmatrix_x4(a[i], in + ((r0 - 1 + arr + dy) & (ACT_ROWS - 1)) * in_row +
+                                  act_off(ajj + dx, 2 * (s & 1) + (lane >> 4)));
+    }
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int i = 0; i < KSTEPS / 2; ++i) {
+      const int s = half * (KSTEPS / 2) + i;  // k16 step: atom s / 4, 32 bytes in it
+      const uint64_t d = db + (uint64_t)(((s >> 2) * NOUT * 128 + (s & 3) * 32) >> 4);
+      if constexpr (NOUT == 32)
+        sm90::wgmma_m64n32k16_rs(acc, a[i], d);
+      else
+        sm90::wgmma_m64n64k16_rs(acc, a[i], d);
+    }
+    sm90::wgmma_commit();
+  }
+  during();  // the warpgroup's other work, while the products run
+  sm90::wgmma_wait<0>();
+  // acc[e]: row 16 wq + lane / 4 (+8 for bit 1 of e), channel 8 (e / 4) + 2 (lane % 4) (+1)
+#pragma unroll
+  for (int e = 0; e < NOUT / 2; e += 2) {
+    const int m = 16 * wq + lane / 4 + 8 * ((e >> 1) & 1);
+    const int ch = 8 * (e >> 2) + 2 * (lane & 3);
+    const int rr = m / WO, jj = m - rr * WO;
+    const int r = r0 + rr, c = c0 + jj;
+    if (m < 2 * WO) {
+      const bool inside = r >= 0 && r < g.S2h && c >= 0 && c < g.S2w;
+      const __nv_bfloat162 v = inside ? __floats2bfloat162_rn(fmaxf(acc[e] + bias[ch], 0.f),
+                                                              fmaxf(acc[e + 1] + bias[ch + 1], 0.f))
+                                      : __floats2bfloat162_rn(0.f, 0.f);
+      const int off = NOUT == 32 ? act_off(jj, ch >> 3) : jj * 128 + (((ch >> 3) ^ (jj & 7)) << 4);
+      *reinterpret_cast<__nv_bfloat162*>(out + (r & (ACT_ROWS - 1)) * out_row + off +
+                                         (ch & 7) * 2) = v;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+fused_stem_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ w1,
+                  const __nv_bfloat16* __restrict__ w2, const __nv_bfloat16* __restrict__ w3,
+                  const float* __restrict__ bias, __nv_bfloat16* __restrict__ y, Geom g) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = sm90::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* const smem = smem_raw + (base - raw);
+  __nv_bfloat16* const s_w1b = reinterpret_cast<__nv_bfloat16*>(smem + OFF_W1);
+  float* const s_bias = reinterpret_cast<float*>(smem + OFF_BIAS);
+
+  const int tid = threadIdx.x, wg = tid / 128, t128 = tid % 128;
+  const int n = blockIdx.z;
+  const int px0 = blockIdx.x * PW;
+  const int py0 = blockIdx.y * g.seg_rows;
+  const int py1 = min(py0 + g.seg_rows, g.S4h);
+  if (py0 >= g.S4h) return;
+  const int ix0 = 4 * px0 - 7;   // input column of ring pixel 0
+  const int c1x0 = 2 * px0 - 3;  // conv1_1 column of ring pixel 0
+  const char* const xb = reinterpret_cast<const char*>(x);
+
+  // input row iy -> ring slot iy % 16, from the 16-byte boundary below the
+  // strip's first pixel (rows outside the image are not loaded: reads mask)
+  auto load_rows = [&](int iy_first, int nrows, int first_item, int stride) {
+    for (int item = first_item; item < nrows * IN_BLOCKS; item += stride) {
+      const int iy = iy_first + item / IN_BLOCKS, b = item % IN_BLOCKS;
+      if (iy < 0 || iy >= g.H) continue;
+      const long long first = (((long long)n * g.H + iy) * g.W + ix0) * 6;
+      const long long src = (first & ~15ll) + 16 * b;
+      const long long left = g.x_bytes - src;
+      const int bytes = src < 0 ? 0 : (int)(left < 0 ? 0 : (left > 16 ? 16 : left));
+      sm90::cp_async_16(base + OFF_IN + (iy & (IN_ROWS - 1)) * IN_ROW_BYTES + 16 * b,
+                        bytes ? xb + src : xb, bytes);
+    }
+  };
+
+  // raw input rows iy_first.. -> 4-channel pixels (c0, c1, c2, 0) of the
+  // padded ring, zero outside the image
+  auto pad_rows = [&](int iy_first, int nrows, int first_item, int stride) {
+    for (int item = first_item; item < nrows * W0; item += stride) {
+      const int iy = iy_first + item / W0, p = item % W0;
+      const int ix = ix0 + p;
+      uint2 v = make_uint2(0u, 0u);
+      if (iy >= 0 && iy < g.H && ix >= 0 && ix < g.W) {
+        const unsigned short* src = reinterpret_cast<const unsigned short*>(
+            smem + OFF_IN + (iy & (IN_ROWS - 1)) * IN_ROW_BYTES +
+            row_phase(n, iy, g.H, g.W, ix0) + 6 * p);
+        v = make_uint2(src[0] | ((uint32_t)src[1] << 16), src[2]);
+      }
+      *reinterpret_cast<uint2*>(smem + OFF_PAD + (iy & (IN_ROWS - 1)) * PAD_ROW + 8 * p) = v;
+    }
+  };
+
+  // prologue: the weights (swizzled K-major, zero past k = 288), w1, biases,
+  // and the first step's five input rows
+  for (int item = tid; item < (32 + 64) * 40; item += THREADS) {
+    const int row = item / 40, a = (item % 40) / 8, c = item % 8;
+    const int k = 64 * a + 8 * c;
+    const bool is2 = row < 32;
+    const int r = is2 ? row : row - 32, rows = is2 ? 32 : 64;
+    const __nv_bfloat16* src = (is2 ? w2 : w3) + r * 288 + k;
+    const uint32_t dst = base + (is2 ? 0 : OFF_B3) + a * rows * 128 + sm90::swz128(r, c);
+    sm90::cp_async_16(dst, k < 288 ? src : (is2 ? w2 : w3), k < 288 ? 16 : 0);
+  }
+  const int t0 = py0 - 3;  // three warm-up steps fill the rings
+  load_rows(4 * t0 + 3, 5, tid, THREADS);
+  sm90::cp_async_commit();
+  // conv1_1's weight as bf16 [co][k], k = 16 ky + 4 kx + ci, zero for ci = 3
+  // and 4 kx + ci >= 12 (its values are bf16 already): the mma B fragments
+  for (int i = tid; i < 32 * 48; i += THREADS) {
+    const int co = i / 48, k = i % 48, ky = k / 16, kx = (k % 16) / 4, ci = k % 4;
+    s_w1b[co * W1B_LD + k] =
+        __float2bfloat16(kx < 3 && ci < 3 ? w1[((ky * 3 + kx) * 3 + ci) * 32 + co] : 0.f);
+  }
+  if (tid < 128) s_bias[tid] = bias[tid];
+  sm90::cp_async_wait<0>();
+  sm90::fence_proxy_async();  // the weights are read by wgmma (the async proxy)
+  __syncthreads();
+  pad_rows(4 * t0 + 3, 5, tid, THREADS);
+  __syncthreads();
+
+  const int lane = tid % 32, w = t128 / 32;
+  const int gq = lane / 4, q = lane % 4;  // mma.sync fragment row and column pair
+
+  // conv1_1 rows 2u+2, 2u+3 on mma.sync m16n8k16: the 2 x 33 pixels in 5 m16
+  // tiles, N = 32, K = 3 k16 steps, one per kernel row ky, each the 3 x 4
+  // (kx, channel) values of 3 neighbouring padded pixels (the 4
+  // zero-weighted rest of the step is zeroed in A too).  One warp, one tile.
+  auto conv1_1_tile = [&](int u, int tile) {
+    uint32_t a[3][4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // fragment rows gq and gq + 8
+      const int m = 16 * tile + gq + 8 * h;
+      const int rr = m / W1, j = m - rr * W1;
+      const int r = 2 * u + 2 + rr;
 #pragma unroll
       for (int ky = 0; ky < 3; ++ky) {
+        const uint32_t* row = reinterpret_cast<const uint32_t*>(
+            smem + OFF_PAD + ((2 * r - 1 + ky) & (IN_ROWS - 1)) * PAD_ROW);
+        a[ky][h] = row[4 * j + q];                       // k 2q, 2q + 1
+        a[ky][2 + h] = q < 2 ? row[4 * j + 4 + q] : 0u;  // k 2q + 8, 2q + 9
+      }
+    }
 #pragma unroll
-        for (int kx = 0; kx < 3; ++kx) {
-          const __nv_bfloat16* ip = in + ((ry * STRIDE + ky) * IN_W + rx * STRIDE + kx) * CIN;
-          const float* wp = w + (ky * 3 + kx) * CIN * COUT + g * 8;
-#pragma unroll 8
-          for (int ci = 0; ci < CIN; ++ci) {
-            const float a = __bfloat162float(ip[ci]);
-            const float4 w0 = *reinterpret_cast<const float4*>(wp + ci * COUT);
-            const float4 w1 = *reinterpret_cast<const float4*>(wp + ci * COUT + 4);
-            acc[0] += a * w0.x; acc[1] += a * w0.y; acc[2] += a * w0.z; acc[3] += a * w0.w;
-            acc[4] += a * w1.x; acc[5] += a * w1.y; acc[6] += a * w1.z; acc[7] += a * w1.w;
-          }
+    for (int nt = 0; nt < 4; ++nt) {
+      float d[4] = {0.f, 0.f, 0.f, 0.f};
+      const unsigned char* wb = smem + OFF_W1 + ((8 * nt + gq) * W1B_LD + 2 * q) * 2;
+#pragma unroll
+      for (int ky = 0; ky < 3; ++ky)
+        sm90::mma_m16n8k16(d, a[ky], *reinterpret_cast<const uint32_t*>(wb + 32 * ky),
+                           *reinterpret_cast<const uint32_t*>(wb + 32 * ky + 16));
+      const int ch = 8 * nt + 2 * q;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = 16 * tile + gq + 8 * h;
+        const int rr = m / W1, j = m - rr * W1;
+        const int r = 2 * u + 2 + rr, c = c1x0 + j;
+        if (m < 2 * W1) {
+          const bool inside = r >= 0 && r < g.S2h && c >= 0 && c < g.S2w;
+          const __nv_bfloat162 v =
+              inside ? __floats2bfloat162_rn(fmaxf(d[2 * h] + s_bias[ch], 0.f),
+                                             fmaxf(d[2 * h + 1] + s_bias[ch + 1], 0.f))
+                     : __floats2bfloat162_rn(0.f, 0.f);
+          *reinterpret_cast<__nv_bfloat162*>(smem + OFF_C1 + (r & (ACT_ROWS - 1)) * C1_ROW +
+                                             act_off(j, nt) + 4 * q) = v;
         }
       }
-      __nv_bfloat16* pk = reinterpret_cast<__nv_bfloat16*>(&packed);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) pk[j] = __float2bfloat16(fmaxf(acc[j] + b[g * 8 + j], 0.f));
     }
-    *reinterpret_cast<uint4*>(out + pix * OUT_LD + g * 8) = packed;
-  }
-}
+  };
 
-// A 3x3/s1 conv on the tensor cores: out[OUT_W^2][OUT_LD] from
-// in[IN_W^2][ACT_LD] (32 channels used), weights w[9*32][W_LD],
-// IN_W = OUT_W + 2, 16 <= OUT_W < 32.  A warp task is 16 pixels of one tile
-// row (columns [0, 16) or [OUT_W-16, OUT_W)) x 16 output channels, summed
-// over 9 taps x 2 chunks of 16 input channels; the fp32 tile goes through the
-// warp's staging buffer for bias, relu, the range mask and the bf16 round.
-template <int COUT, int W_LD, int IN_W, int OUT_W, int OUT_LD>
-__device__ __forceinline__ void conv_wmma(const __nv_bfloat16* __restrict__ in,
-                                          __nv_bfloat16* __restrict__ out,
-                                          const __nv_bfloat16* __restrict__ w,
-                                          const float* __restrict__ b,
-                                          float* __restrict__ stage,
-                                          int oy0, int ox0, int OH, int OW) {
-  static_assert(IN_W == OUT_W + 2 && OUT_W >= 16 && OUT_W < 32, "tile shape");
-  constexpr int NF = COUT / 16;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int t = warp; t < OUT_W * 2 * NF; t += WARPS) {
-    const int nf = t % NF, half = (t / NF) % 2, ry = t / (2 * NF);
-    const int rx0 = half ? OUT_W - 16 : 0;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
+  // max-pool 3x3/s2 of pooled row t: conv1_3 rows 2t-1..2t+1, strip columns
+  // 2i..2i+2; item = 8 i + channel group
+  auto pool = [&](int t, int item) {
+    const int grp = item & 7, i = item >> 3;
+    const int px = px0 + i;
+    if (px >= g.S4w) return;
+    float mx[8];
 #pragma unroll
-    for (int tap = 0; tap < 9; ++tap) {
-      const __nv_bfloat16* a = in + ((ry + tap / 3) * IN_W + rx0 + tap % 3) * ACT_LD;
-#pragma unroll
-      for (int kc = 0; kc < 32; kc += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fa, a + kc, ACT_LD);
-        wmma::load_matrix_sync(fb, w + (tap * 32 + kc) * W_LD + nf * 16, W_LD);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-    }
-    wmma::store_matrix_sync(stage, acc, STAGE_LD, wmma::mem_row_major);
-    __syncwarp();
-    const int r = lane / 2, c0 = (lane % 2) * 8;
-    const int rx = rx0 + r, ay = oy0 + ry, ax = ox0 + rx;
-    uint4 packed = make_uint4(0u, 0u, 0u, 0u);
-    if (ay >= 0 && ay < OH && ax >= 0 && ax < OW) {
-      __nv_bfloat16* pk = reinterpret_cast<__nv_bfloat16*>(&packed);
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        pk[j] = __float2bfloat16(fmaxf(stage[r * STAGE_LD + c0 + j] + b[nf * 16 + c0 + j], 0.f));
-    }
-    *reinterpret_cast<uint4*>(out + (ry * OUT_W + rx) * OUT_LD + nf * 16 + c0) = packed;
-    __syncwarp();
-  }
-}
-
-__global__ void __launch_bounds__(THREADS)
-fused_stem_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ w1,
-                  const float* __restrict__ b1, const __nv_bfloat16* __restrict__ w2,
-                  const float* __restrict__ b2, const __nv_bfloat16* __restrict__ w3,
-                  const float* __restrict__ b3, __nv_bfloat16* __restrict__ y,
-                  int H, int W, int S2h, int S2w, int S4h, int S4w, int tiles_x) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* sw2 = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sw3 = reinterpret_cast<__nv_bfloat16*>(smem + OFF_W3);
-  float* stage = reinterpret_cast<float*>(smem + OFF_STAGE) + (threadIdx.x / 32) * 16 * STAGE_LD;
-  __nv_bfloat16* s_in = reinterpret_cast<__nv_bfloat16*>(smem + OFF_ACT);
-  __nv_bfloat16* s_c1 = reinterpret_cast<__nv_bfloat16*>(smem + OFF_ACT + IN_BYTES);
-  __nv_bfloat16* s_c3 = reinterpret_cast<__nv_bfloat16*>(smem + OFF_ACT);
-  __nv_bfloat16* s_c2 = reinterpret_cast<__nv_bfloat16*>(smem + OFF_C2);
-  float* sw1 = reinterpret_cast<float*>(smem + OFF_W1);
-  float* sb = sw1 + W1_N;  // b1 | b2 | b3
-
-  const int tid = threadIdx.x;
-  const int n = blockIdx.y;
-  const int py0 = (blockIdx.x / tiles_x) * T, px0 = (blockIdx.x % tiles_x) * T;
-
-  // weight rows [tap*32 + ci] of 32 / 64 bf16 into padded rows, 16 bytes a copy
-  for (int i = tid; i < 9 * 32 * 4; i += THREADS)
-    *reinterpret_cast<uint4*>(sw2 + (i / 4) * W2_LD + (i % 4) * 8) =
-        __ldg(reinterpret_cast<const uint4*>(w2) + i);
-  for (int i = tid; i < 9 * 32 * 8; i += THREADS)
-    *reinterpret_cast<uint4*>(sw3 + (i / 8) * W3_LD + (i % 8) * 8) =
-        __ldg(reinterpret_cast<const uint4*>(w3) + i);
-  for (int i = tid; i < W1_N / 4; i += THREADS)
-    reinterpret_cast<float4*>(sw1)[i] = __ldg(reinterpret_cast<const float4*>(w1) + i);
-  if (tid < 32) sb[tid] = b1[tid];
-  else if (tid < 64) sb[tid] = b2[tid - 32];
-  else if (tid < 128) sb[tid] = b3[tid - 64];
-
-  // input halo: image rows 4*py0-7 .. +R0, zeros outside the image
-  const int iy0 = 4 * py0 - 7, ix0 = 4 * px0 - 7;
-  const __nv_bfloat16* xn = x + (size_t)n * H * W * 3;
-  const __nv_bfloat16 zero = __float2bfloat16(0.f);
-  for (int i = tid; i < R0 * R0; i += THREADS) {
-    const int iy = iy0 + i / R0, ix = ix0 + i % R0;
-    const bool inside = iy >= 0 && iy < H && ix >= 0 && ix < W;
-    const __nv_bfloat16* src = xn + ((size_t)iy * W + ix) * 3;
-#pragma unroll
-    for (int c = 0; c < 3; ++c) s_in[i * 3 + c] = inside ? src[c] : zero;
-  }
-  __syncthreads();
-
-  conv_layer<3, 32, 2, R0, R1, ACT_LD>(s_in, s_c1, sw1, sb, 2 * py0 - 3, 2 * px0 - 3, S2h, S2w);
-  __syncthreads();
-  conv_wmma<32, W2_LD, R1, R2, ACT_LD>(s_c1, s_c2, sw2, sb + 32, stage, 2 * py0 - 2,
-                                       2 * px0 - 2, S2h, S2w);
-  __syncthreads();
-  conv_wmma<64, W3_LD, R2, R3, 64>(s_c2, s_c3, sw3, sb + 64, stage, 2 * py0 - 1,
-                                   2 * px0 - 1, S2h, S2w);
-  __syncthreads();
-
-  // max-pool 3x3/s2: pooled (i, j) reads conv1_3 tile rows 2i..2i+2
-  for (int item = tid; item < T * T * 8; item += THREADS) {
-    const int g = item % 8, pix = item / 8;
-    const int i = pix / T, j = pix % T;
-    const int py = py0 + i, px = px0 + j;
-    if (py >= S4h || px >= S4w) continue;
-    float m[8];
-#pragma unroll
-    for (int k = 0; k < 8; ++k) m[k] = 0.f;  // inputs are >= 0
+    for (int e = 0; e < 8; ++e) mx[e] = 0.f;  // inputs are >= 0
 #pragma unroll
     for (int dy = 0; dy < 3; ++dy) {
+      const unsigned char* row = smem + OFF_C3 + ((2 * t - 1 + dy) & (ACT_ROWS - 1)) * C3_ROW;
 #pragma unroll
       for (int dx = 0; dx < 3; ++dx) {
-        const uint4 raw = *reinterpret_cast<const uint4*>(
-            s_c3 + ((2 * i + dy) * R3 + 2 * j + dx) * 64 + g * 8);
-        const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
+        const int jj = 2 * i + dx;
+        const uint4 raw4 =
+            *reinterpret_cast<const uint4*>(row + jj * 128 + ((grp ^ (jj & 7)) << 4));
+        const __nv_bfloat16* v = reinterpret_cast<const __nv_bfloat16*>(&raw4);
 #pragma unroll
-        for (int k = 0; k < 8; ++k) m[k] = fmaxf(m[k], __bfloat162float(e[k]));
+        for (int e = 0; e < 8; ++e) mx[e] = fmaxf(mx[e], __bfloat162float(v[e]));
       }
     }
-    uint4 packed;
-    __nv_bfloat16* pk = reinterpret_cast<__nv_bfloat16*>(&packed);
+    uint4 out;
+    __nv_bfloat16* pk = reinterpret_cast<__nv_bfloat16*>(&out);
 #pragma unroll
-    for (int k = 0; k < 8; ++k) pk[k] = __float2bfloat16(m[k]);
-    *reinterpret_cast<uint4*>(y + (((size_t)n * S4h + py) * S4w + px) * 64 + g * 8) = packed;
+    for (int e = 0; e < 8; ++e) pk[e] = __float2bfloat16(mx[e]);
+    *reinterpret_cast<uint4*>(y + (((size_t)n * g.S4h + t) * g.S4w + px) * 64 + grp * 8) = out;
+  };
+
+  // stage u: conv1_3 of step u-2 (warpgroup 0); conv1_2 of step u-1 and,
+  // while its products run, conv1_1's last tile of step u and the pool of
+  // step u-3 (warpgroup 1); the loads of step u+1's input rows and conv1_1's
+  // first four tiles of step u (warpgroup 2)
+  for (int u = t0; u < py1 + 3; ++u) {
+    if (wg == 0) {
+      const int t = u - 2;
+      if (t >= py0 - 1 && t < py1)
+        conv_wgmma<W3, 64>(g, base + OFF_C2, C2_ROW, base + OFF_B3, smem + OFF_C3, C3_ROW,
+                           s_bias + 64, 2 * t, 2 * px0 - 1, [] {});
+    } else if (wg == 1) {
+      const int t = u - 1;
+      auto side = [&] {
+        if (u < py1 && w == 0) conv1_1_tile(u, C1_TILES - 1);
+        if (u - 3 >= py0 && t128 < PW * 8) pool(u - 3, t128);
+      };
+      if (t >= py0 - 2 && t < py1)
+        conv_wgmma<W2, 32>(g, base + OFF_C1, C1_ROW, base, smem + OFF_C2, C2_ROW,
+                           s_bias + 32, 2 * t + 1, 2 * px0 - 2, side);
+      else
+        side();
+    } else {
+      if (u + 1 < py1) load_rows(4 * u + 8, 4, t128, 128);  // the next step's rows
+      sm90::cp_async_commit();
+      if (u < py1) conv1_1_tile(u, w);
+      sm90::cp_async_wait<0>();
+      sm90::named_barrier(1, 128);  // the next step's rows have landed, all of them
+      if (u + 1 < py1) pad_rows(4 * u + 8, 4, t128, 128);
+    }
+    __syncthreads();
   }
 }
 
 }  // namespace
 
-extern "C" int fused_stem_smem_bytes() { return SMEM_BYTES; }
-
-extern "C" int fused_stem_launch(const void* x, const void* w1, const void* b1,
-                                 const void* w2, const void* b2, const void* w3,
-                                 const void* b3, void* y, int N, int H, int W,
-                                 void* stream) {
+// Blocks of the kernel that fit one SM (cudaOccupancy...), or minus the CUDA
+// error.
+extern "C" int fused_stem_blocks_per_sm() {
   cudaError_t err = cudaFuncSetAttribute(
       fused_stem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fused_stem_kernel, THREADS,
+                                                        SMEM_BYTES);
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
+}
+
+extern "C" int fused_stem_launch(const void* x, const void* w1, const void* w2,
+                                 const void* w3, const void* bias, void* y, int N, int H,
+                                 int W, void* stream) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      fused_stem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int S2h = (H - 1) / 2 + 1, S2w = (W - 1) / 2 + 1;
-  const int S4h = (S2h - 1) / 2 + 1, S4w = (S2w - 1) / 2 + 1;
-  const int tiles_y = (S4h + T - 1) / T, tiles_x = (S4w + T - 1) / T;
-  dim3 grid(tiles_x * tiles_y, N);
+  Geom g;
+  g.H = H;
+  g.W = W;
+  g.S2h = (H - 1) / 2 + 1;
+  g.S2w = (W - 1) / 2 + 1;
+  g.S4h = (g.S2h - 1) / 2 + 1;
+  g.S4w = (g.S2w - 1) / 2 + 1;
+  g.x_bytes = (long long)N * H * W * 3 * 2;
+  // enough row segments per strip for two waves of blocks, each segment at
+  // least 8 pooled rows (a segment pays three warm-up steps)
+  const int strips = (g.S4w + PW - 1) / PW;
+  const int want = (2 * sms + strips * N - 1) / (strips * N);
+  const int most = (g.S4h + 7) / 8;
+  const int segs = want < 1 ? 1 : (want > most ? most : want);
+  g.seg_rows = (g.S4h + segs - 1) / segs;
+  dim3 grid(strips, (g.S4h + g.seg_rows - 1) / g.seg_rows, N);
   fused_stem_kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(w1),
-      static_cast<const float*>(b1), static_cast<const __nv_bfloat16*>(w2),
-      static_cast<const float*>(b2), static_cast<const __nv_bfloat16*>(w3),
-      static_cast<const float*>(b3), static_cast<__nv_bfloat16*>(y), H, W, S2h, S2w,
-      S4h, S4w, tiles_x);
+      static_cast<const __nv_bfloat16*>(w2), static_cast<const __nv_bfloat16*>(w3),
+      static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(y), g);
   return static_cast<int>(cudaGetLastError());
 }

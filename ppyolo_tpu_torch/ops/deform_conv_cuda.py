@@ -28,13 +28,12 @@ def _fn(name: str):
     return fn
 
 
-def pack_dcn_weight(weight: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
-    """OIHW [outC, C, kh, kw] -> [kh*kw*C, outC] in ``dtype`` (bf16 for the
-    DCN kernels), tap-major then input channel (the flatten order of an
-    HWIO kernel)."""
+def pack_dcn_weight(weight: torch.Tensor) -> torch.Tensor:
+    """OIHW [outC, C, kh, kw] -> [kh*kw*C, outC] bf16, tap-major then
+    input channel (the flatten order of an HWIO kernel)."""
     out_c, c, kh, kw = weight.shape
     return (weight.permute(2, 3, 1, 0).reshape(kh * kw * c, out_c)
-            .to(dtype).contiguous())
+            .to(torch.bfloat16).contiguous())
 
 
 def dcn_fwd(x: torch.Tensor, om: torch.Tensor, packed_weight: torch.Tensor,

@@ -11,6 +11,10 @@ the fp32 bias, applies relu and rounds to the compute dtype; then the
 max-pool.  At fp32 it is the unfused op chain
 (``stem_pallas.py::fused_stem_reference``).  ``fused_stem.launches`` counts
 the kernel's launches.
+
+The kernel reads its parameters in its own layout (``pack_stem_params``).
+``apply_stem`` folds BN and packs once per set of parameter values and
+keeps the result on the first stem module, so a served batch pays neither.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ import torch.nn.functional as F
 from . import _build
 from .blocks import max_pool2d
 from .module import BN_EPS
+from .strided_conv import pack_conv_s2_weight
 
 STEM_SHAPES = [(3, 32, 2), (32, 32, 1), (32, 64, 1)]  # (cin, cout, stride)
 
@@ -65,7 +70,24 @@ def fused_stem_plain(x, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
     return max_pool2d(y, 3, 2, 1)
 
 
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+def pack_stem_params(w1, b1, w2, b2, w3, b3) -> Tuple[torch.Tensor, ...]:
+    """The folded stem parameters (OIHW weights, fp32 biases) in the layout
+    the kernel reads, on their device: conv1_1's weight rounded to bf16 and
+    held in fp32, HWIO-flattened [27, 32] (the kernel lays it out for its
+    mma.sync B fragments); conv1_2's and conv1_3's bf16 and K-major
+    [Co, 288] (column tap * 32 + ci) for the wgmma B tiles; the three
+    biases as one fp32 [128]."""
+    for w, b, (cin, cout, _) in zip((w1, w2, w3), (b1, b2, b3), STEM_SHAPES):
+        if tuple(w.shape) != (cout, cin, 3, 3) or tuple(b.shape) != (cout,):
+            raise ValueError(f"fused_stem: weight {tuple(w.shape)} / bias "
+                             f"{tuple(b.shape)} do not match {cin}->{cout}")
+    bf = torch.bfloat16
+    return (w1.to(bf).float().permute(2, 3, 1, 0).reshape(27, 32).contiguous(),
+            pack_conv_s2_weight(w2, bf), pack_conv_s2_weight(w3, bf),
+            torch.cat([b.float() for b in (b1, b2, b3)]))
+
+
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
 def _lib():
@@ -75,9 +97,12 @@ def _lib():
     return lib
 
 
-def fused_stem(x, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
+def fused_stem(x, w1, b1, w2, b2, w3, b3, *, packed=None) -> torch.Tensor:
     """The fused stem on x's device: the plain version for a CPU tensor, the
-    Hopper kernel for a CUDA tensor (bf16 only; it raises otherwise)."""
+    Hopper kernel for a CUDA tensor (bf16 only; it raises otherwise).
+    ``packed`` is ``pack_stem_params(w1, ..., b3)``, made once by a caller
+    that reuses the parameters; without it the kernel's call packs them.
+    The plain version reads the parameters as given."""
     if x.device.type == "cpu":
         return fused_stem_plain(x, w1, b1, w2, b2, w3, b3)
     if x.device.type != "cuda":
@@ -87,19 +112,18 @@ def fused_stem(x, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
     N, C, H, W = x.shape
     if C != 3:
         raise ValueError(f"fused_stem: 3 input channels expected, got {C}")
-    for w, b, (cin, cout, _) in zip((w1, w2, w3), (b1, b2, b3), STEM_SHAPES):
-        if tuple(w.shape) != (cout, cin, 3, 3) or tuple(b.shape) != (cout,):
-            raise ValueError(f"fused_stem: weight {tuple(w.shape)} / bias "
-                             f"{tuple(b.shape)} do not match {cin}->{cout}")
+    if packed is None:
+        packed = pack_stem_params(w1, b1, w2, b2, w3, b3)
     xh = x.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
-    # HWIO copies (tiny): conv1_1's fp32 for the CUDA cores, the others bf16
-    # for the tensor cores; fp32 biases
-    ws = [w.to(x.dtype).to(dt).permute(2, 3, 1, 0).contiguous()
-          for w, dt in ((w1, torch.float32), (w2, x.dtype), (w3, x.dtype))]
-    bs = [b.float().contiguous() for b in (b1, b2, b3)]
-    for t in (*ws, *bs):
-        if t.device != x.device:
-            raise ValueError(f"fused_stem: parameter on {t.device}, x on {x.device}")
+    shapes = ((27, 32), (32, 288), (64, 288), (128,))
+    dtypes = (torch.float32, torch.bfloat16, torch.bfloat16, torch.float32)
+    for t, shape, dt in zip(packed, shapes, dtypes):
+        if (tuple(t.shape) != shape or t.dtype != dt or not t.is_contiguous()
+                or t.device != x.device or t.data_ptr() % 16):
+            raise ValueError(f"fused_stem: packed parameter {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device} is not from pack_stem_params")
+    if xh.data_ptr() % 16:
+        raise ValueError("fused_stem: x must be 16-byte aligned")
     s2h, s2w = (H - 1) // 2 + 1, (W - 1) // 2 + 1
     s4h, s4w = (s2h - 1) // 2 + 1, (s2w - 1) // 2 + 1
     y = torch.empty((N, 64, s4h, s4w), dtype=x.dtype, device=x.device,
@@ -107,8 +131,7 @@ def fused_stem(x, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
     lib = _lib()
     fused_stem.launches += 1
     err = lib.fused_stem_launch(
-        xh.data_ptr(), ws[0].data_ptr(), bs[0].data_ptr(), ws[1].data_ptr(),
-        bs[1].data_ptr(), ws[2].data_ptr(), bs[2].data_ptr(), y.data_ptr(),
+        xh.data_ptr(), *(t.data_ptr() for t in packed), y.data_ptr(),
         N, H, W, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_stem kernel launch failed: cudaError {err}")
@@ -118,13 +141,27 @@ def fused_stem(x, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
 fused_stem.launches = 0
 
 
+def stem_params(mods: Sequence):
+    """(the six folded parameters, ``pack_stem_params`` of them) for the three
+    stem modules, cached on the first one and rebuilt only when a parameter
+    or buffer changes (new storage, an in-place write, a dtype or device
+    move)."""
+    key = tuple((t.data_ptr(), t._version, t.dtype, t.device)
+                for m in mods for t in (*m.parameters(), *m.buffers()))
+    cache = getattr(mods[0], "_stem_cache", None)
+    if cache is None or cache[0] != key:
+        with torch.no_grad():
+            folded = [t for m in mods for t in fold_eval_bn(m)]
+            cache = (key, folded, pack_stem_params(*folded))
+        mods[0]._stem_cache = cache
+    return cache[1], cache[2]
+
+
 def apply_stem(mods: Sequence, x: torch.Tensor) -> torch.Tensor:
     """conv1_1..conv1_3 (+BN +relu) + max-pool: fused where eligible."""
     if stem_eligible(mods, x):
-        ws = []
-        for m in mods:
-            ws.extend(fold_eval_bn(m))
-        return fused_stem(x, *ws)
+        folded, packed = stem_params(mods)
+        return fused_stem(x, *folded, packed=packed)
     for m in mods:
         x = m(x)
     return max_pool2d(x, 3, 2, 1)

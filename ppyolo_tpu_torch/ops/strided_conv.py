@@ -16,6 +16,8 @@ functions fix with ``preferred_element_type=jnp.float32``:
   conv_s2        -- the plain version for a CPU tensor, K4 for a CUDA
                     tensor (it never falls back); ``conv_s2.launches``
                     counts K4's launches
+  pack_conv_s2_weight -- the weight in the layout K4 reads; a caller that
+                    reuses a weight packs it once and passes ``packed=``
 
 The input must be square with an even side (the JAX kernel's
 ``s = h // 2``).  K4 has no backward, as the Pallas kernel has no vjp:
@@ -29,7 +31,6 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .deform_conv_cuda import pack_dcn_weight
 
 DTYPES = (torch.bfloat16, torch.float32)
 
@@ -76,6 +77,17 @@ def conv_s2_phase(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out.to(x.dtype).permute(0, 3, 1, 2)
 
 
+def pack_conv_s2_weight(w: torch.Tensor, dtype: torch.dtype = None) -> torch.Tensor:
+    """OIHW [Co, C, 3, 3] -> the layout K4 reads, in ``dtype`` (w's by
+    default).  GEMM column k = tap * C + c, the flatten order of an HWIO
+    kernel.  bf16: K-major [Co, 9*C], the wgmma B tile's rows; fp32:
+    [9*C, Co], the FMA kernel's rows."""
+    dtype = dtype or w.dtype
+    co, c = w.shape[:2]
+    k_major = w.permute(0, 2, 3, 1).reshape(co, 9 * c)
+    return (k_major.t() if dtype == torch.float32 else k_major).to(dtype).contiguous()
+
+
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
@@ -86,9 +98,12 @@ def _launch():
     return fn
 
 
-def conv_s2(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def conv_s2(x: torch.Tensor, w: torch.Tensor, packed: torch.Tensor = None) -> torch.Tensor:
     """The strided conv on x's device: the plain version for a CPU tensor,
-    K4 for a CUDA tensor (C and Co multiples of 8; it raises otherwise)."""
+    K4 for a CUDA tensor (C and Co multiples of 8; it raises otherwise).
+    ``packed`` is ``pack_conv_s2_weight(w, x.dtype)``, made once by a
+    caller that reuses w; without it K4's call packs w itself.  The plain
+    version reads w."""
     s = _check(x, w, "conv_s2")
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         raise RuntimeError("conv_s2 has no backward (nor has the Pallas kernel); "
@@ -105,7 +120,13 @@ def conv_s2(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"conv_s2 kernel needs C % 8 == 0 and Co % 8 == 0, got C={c}, Co={co}")
     # NHWC rows for the kernel's 16-byte loads along C
     xh = x.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
-    packed = pack_dcn_weight(w, x.dtype)
+    if packed is None:
+        packed = pack_conv_s2_weight(w, x.dtype)
+    want = (co, 9 * c) if x.dtype == torch.bfloat16 else (9 * c, co)
+    if (packed.dtype != x.dtype or tuple(packed.shape) != want or not packed.is_contiguous()
+            or packed.device != x.device):
+        raise ValueError(f"conv_s2: packed weight {packed.dtype} {tuple(packed.shape)} on "
+                         f"{packed.device} is not pack_conv_s2_weight(w, {x.dtype})")
     y = torch.empty((n, co, s, s), dtype=x.dtype, device=x.device,
                     memory_format=torch.channels_last)
     if xh.data_ptr() % 16 or packed.data_ptr() % 16:

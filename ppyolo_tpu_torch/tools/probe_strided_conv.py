@@ -12,7 +12,8 @@ then exits non-zero.
 
 Variants: ``conv2d`` (one ``F.conv2d`` call, cuDNN on the card),
 ``phase`` (K4's plain version), ``k4`` (``conv_s2``: the kernel on the
-card, the plain version with ``--cpu``), ``conv2d#2``.  Each shape's bound
+card, the plain version with ``--cpu``; the weight packed once per shape,
+outside the timed passes), ``conv2d#2``.  Each shape's bound
 is printed from the H100's peaks.  TF32 is off, so fp32 runs in fp32.
 
 Usage: python -m ppyolo_tpu_torch.tools.probe_strided_conv
@@ -28,12 +29,10 @@ import traceback
 
 import torch
 
-from ..ops.strided_conv import conv_s2, conv_s2_conv2d, conv_s2_phase
+from ..ops.strided_conv import conv_s2, conv_s2_conv2d, conv_s2_phase, pack_conv_s2_weight
 
 METRIC = "strided_conv_ab_ms_per_b8_batch"
 SHAPES = [("stage3_0", 152, 128, 128), ("stage4_0", 76, 256, 256)]  # (name, H, C, Co)
-VARIANTS = {"conv2d": conv_s2_conv2d, "phase": conv_s2_phase, "k4": conv_s2,
-            "conv2d#2": conv_s2_conv2d}
 # H100 SXM dense peaks: bf16 on the tensor cores, fp32 outside them; HBM3
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
 PEAK_BYTES = 3.35e12
@@ -110,8 +109,11 @@ def main(argv=None) -> dict:
               f"H100 {PEAK_FLOPS[a.dtype] / 1e12:.0f} TFLOP/s, {PEAK_BYTES / 1e12} TB/s)",
               flush=True)
         want = conv_s2_phase(xs[0], w).float()
+        packed = pack_conv_s2_weight(w, dt)
+        variants = {"conv2d": conv_s2_conv2d, "phase": conv_s2_phase,
+                    "k4": lambda x, w: conv_s2(x, w, packed=packed), "conv2d#2": conv_s2_conv2d}
         row = {}
-        for vname, fn in VARIANTS.items():
+        for vname, fn in variants.items():
             try:
                 err = float((fn(xs[0], w).float() - want).abs().max())
                 ref = float(want.abs().max())

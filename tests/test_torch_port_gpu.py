@@ -66,8 +66,11 @@ def test_dcn_kernel_matches_plain(shape, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("size,batch", [(64, 2), (70, 1), (608, 1)])
+@pytest.mark.parametrize("size,batch", [(64, 2), (70, 1), (608, 1), (600, 1), (416, 2),
+                                        (45, 3), (608, 8)])
 def test_stem_kernel_matches_plain(size, batch):
+    """600, 416, 70 and 45 leave ragged strips, segments and pooled tiles;
+    a row of 70 or 45 pixels starts off a 16-byte boundary."""
     dev = _cuda_or_skip()
     x = np.random.RandomState(4).randn(batch, size, size, 3).astype(np.float32)
     xt = _nchw(x, torch.bfloat16).to(dev)
@@ -77,6 +80,24 @@ def test_stem_kernel_matches_plain(size, batch):
     torch.cuda.synchronize()
     assert got.shape == want.shape
     assert (got.float() - want).abs().max() <= 0.02 * want.abs().max()
+
+
+@pytest.mark.gpu
+def test_stem_kernel_packed_once_and_deterministic():
+    """Parameters packed once give the bits of the call that packs them, and
+    two calls on one input give the same bits (no atomics)."""
+    from ppyolo_tpu_torch.ops.stem import pack_stem_params
+
+    dev = _cuda_or_skip()
+    x = np.random.RandomState(5).randn(2, 600, 600, 3).astype(np.float32)
+    xt = _nchw(x, torch.bfloat16).to(dev)
+    args = _stem_args(11, torch.bfloat16, dev)
+    packed = pack_stem_params(*args)
+    a = fused_stem(xt, *args, packed=packed)
+    assert torch.equal(a, fused_stem(xt, *args, packed=packed))
+    assert torch.equal(a, fused_stem(xt, *args))
+    with pytest.raises(ValueError, match="pack_stem_params"):
+        fused_stem(xt, *args, packed=(packed[0], packed[1].t().contiguous()) + packed[2:])
 
 
 def _bwd_inputs(seed, n, h, w, c, oc, stride, dtype, dev):
@@ -151,12 +172,13 @@ def _conv_s2_inputs(seed, n, h, c, co, dtype, dev):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(2, 24, 16, 32), (1, 10, 24, 40), (2, 152, 128, 128),
-                                   (2, 76, 256, 256)])
+                                   (2, 76, 256, 256), (8, 152, 128, 128), (8, 76, 256, 256)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_conv_s2_kernel_matches_plain(shape, dtype):
-    """K4 against conv_s2_phase: (1,10,10,24->40) leaves a ragged tail of
-    output pixels and of output channels; the last two are the probe's
-    stage3_0 and stage4_0 convs at batch 2."""
+    """K4 against conv_s2_phase: C = 16 fills a quarter of the bf16
+    kernel's 64-deep chunk; (1,10,10,24->40) leaves a ragged tail of output
+    pixels and of output channels; the last four are the probe's stage3_0
+    and stage4_0 convs at batch 2 and 8."""
     from ppyolo_tpu_torch.ops.strided_conv import conv_s2, conv_s2_phase
 
     dev = _cuda_or_skip()
@@ -171,6 +193,24 @@ def test_conv_s2_kernel_matches_plain(shape, dtype):
     assert _close(got, want)
     # the padded border: row 0 and column 0 on their own
     assert _close(got[:, :, 0], want[:, :, 0]) and _close(got[:, :, :, 0], want[:, :, :, 0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 10, 24, 40), (8, 76, 256, 256)])
+def test_conv_s2_kernel_packed_once_and_deterministic(shape):
+    """A weight packed once by the caller gives the bits of the call that
+    packs it, and two calls on one input give the same bits (no atomics)."""
+    from ppyolo_tpu_torch.ops.strided_conv import conv_s2, pack_conv_s2_weight
+
+    dev = _cuda_or_skip()
+    n, h, c, co = shape
+    x, w = _conv_s2_inputs(10, n, h, c, co, torch.bfloat16, dev)
+    packed = pack_conv_s2_weight(w)
+    a = conv_s2(x, w, packed=packed)
+    assert torch.equal(a, conv_s2(x, w, packed=packed))
+    assert torch.equal(a, conv_s2(x, w))
+    with pytest.raises(ValueError, match="pack_conv_s2_weight"):
+        conv_s2(x, w, packed=packed.t().contiguous())
 
 
 @pytest.mark.gpu

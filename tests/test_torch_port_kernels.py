@@ -20,8 +20,8 @@ from ppyolo_tpu.ops.stem_pallas import fused_stem as jax_fused_stem
 from ppyolo_tpu.ops.stem_pallas import fused_stem_reference
 
 from ppyolo_tpu_torch.ops.deform_conv import deform_conv2d, deform_conv2d_plain
-from ppyolo_tpu_torch.ops.stem import (fold_eval_bn, fused_stem, fused_stem_plain,
-                                       stem_eligible)
+from ppyolo_tpu_torch.ops.stem import (apply_stem, fold_eval_bn, fused_stem, fused_stem_plain,
+                                       pack_stem_params, stem_eligible, stem_params)
 
 
 def nchw(a: np.ndarray, dtype=torch.float32) -> torch.Tensor:
@@ -138,13 +138,14 @@ def test_plain_stem_matches_pallas_interpret_bf16():
     np.testing.assert_allclose(nhwc(got), want, rtol=0.02, atol=0.02)
 
 
-def test_stem_gate_and_bn_fold():
+def _stem_mods(seed):
+    """The three eval-mode stem ConvNormActs with random weights and BN."""
     from ppyolo_tpu_torch.ops.conv import ConvNormAct
 
     mods = [ConvNormAct(3, 32, 3, stride=2, norm="bn", act="relu"),
             ConvNormAct(32, 32, 3, norm="bn", act="relu"),
             ConvNormAct(32, 64, 3, norm="bn", act="relu")]
-    g = torch.Generator().manual_seed(0)
+    g = torch.Generator().manual_seed(seed)
     for m in mods:
         m.init_parameters(g)
         m.eval()
@@ -152,6 +153,52 @@ def test_stem_gate_and_bn_fold():
             m.bn.running_mean.uniform_(-0.2, 0.2, generator=g)
             m.bn.running_var.uniform_(0.5, 1.5, generator=g)
             m.bn.weight.uniform_(0.5, 1.5, generator=g)
+    return mods, g
+
+
+def test_packed_stem_params_are_the_hwio_kernels_in_the_kernels_layout():
+    """conv1_1 HWIO-flattened [27, 32] (bf16 values in fp32), conv1_2/1_3
+    K-major [Co, 288] bf16 (column tap * 32 + ci), the biases in one fp32
+    vector."""
+    ws = _stem_weights(3)
+    w1, w2, w3, bias = pack_stem_params(*_torch_stem_args(ws, torch.float32))
+    bf = torch.bfloat16
+    assert torch.equal(w1, torch.from_numpy(ws[0].reshape(27, 32)).to(bf).float())
+    for got, hwio in ((w2, ws[2]), (w3, ws[4])):
+        want = np.ascontiguousarray(hwio.reshape(288, -1).T)
+        assert got.dtype == bf and got.is_contiguous()
+        assert torch.equal(got, torch.from_numpy(want).to(bf))
+    assert torch.equal(bias, torch.from_numpy(np.concatenate([ws[1], ws[3], ws[5]])))
+
+
+def test_cached_stem_fold_is_the_per_call_path_and_follows_in_place_writes():
+    """apply_stem folds BN and packs once per set of parameter values: the
+    cached result is bit-identical to folding on every call, is reused while
+    nothing changes, and is rebuilt after an in-place write."""
+    mods, g = _stem_mods(1)
+    x = torch.randn(2, 3, 40, 40, generator=g).to(torch.bfloat16)
+
+    def per_call():
+        ws = [t for m in mods for t in fold_eval_bn(m)]
+        return fused_stem(x, *ws), pack_stem_params(*ws)
+
+    want, want_packed = per_call()
+    assert torch.equal(apply_stem(mods, x), want)
+    folded, packed = stem_params(mods)
+    assert all(torch.equal(a, b) for a, b in zip(packed, want_packed))
+    assert stem_params(mods)[1] is packed and stem_params(mods)[0] is folded
+    with torch.no_grad():
+        mods[1].conv.weight.mul_(1.5)
+        mods[2].bn.running_var.add_(0.5)
+    new_want, new_packed = per_call()
+    assert not torch.equal(new_want, want)
+    assert torch.equal(apply_stem(mods, x), new_want)
+    assert stem_params(mods)[1] is not packed
+    assert all(torch.equal(a, b) for a, b in zip(stem_params(mods)[1], new_packed))
+
+
+def test_stem_gate_and_bn_fold():
+    mods, g = _stem_mods(0)
     xb = torch.zeros(1, 3, 32, 32, dtype=torch.bfloat16)
     assert stem_eligible(mods, xb)
     assert not stem_eligible(mods, xb.float())          # fp32 runs unfused

@@ -9,6 +9,9 @@
   they lie at most one bf16 ulp apart.
 * ``phase_planes`` equals ``_phase_planes`` exactly; odd or non-square
   inputs and tensors that need a gradient raise.
+* ``pack_conv_s2_weight`` is the JAX package's HWIO kernel flattened to
+  [9*C, Co] (K-major, transposed, for bf16), and a packed weight leaves the
+  CPU path exactly ``conv_s2_phase``.
 * The probe entry point runs with ``--cpu`` and imports no JAX.
 Inputs are made with numpy from a seed and handed to both.
 """
@@ -28,7 +31,7 @@ from ppyolo_tpu.ops.strided_conv_pallas import (_phase_planes, conv_s2_pallas,
 
 from ppyolo_tpu_torch.checkpoint.bridge import hwio_to_oihw
 from ppyolo_tpu_torch.ops.strided_conv import (conv_s2, conv_s2_conv2d, conv_s2_phase,
-                                               phase_planes)
+                                               pack_conv_s2_weight, phase_planes)
 
 REPO = Path(__file__).resolve().parents[1]
 SHAPES = [(2, 24, 16, 32), (1, 38, 64, 48), (2, 8, 8, 8)]   # (N, H, C, Co)
@@ -89,6 +92,31 @@ def test_cpu_dispatch_is_the_plain_version():
     assert torch.equal(conv_s2(x, w), conv_s2_phase(x, w))
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_packed_weight_is_the_hwio_kernel_in_the_kernels_layout(shape, dtype):
+    x, w = _inputs(shape)
+    _, c, co = shape[1:]
+    flat = w.reshape(9 * c, co)   # HWIO flattened: GEMM column k = tap * C + c
+    want = torch.from_numpy(np.ascontiguousarray(flat.T if dtype == torch.bfloat16 else flat))
+    got = pack_conv_s2_weight(_torch(x, w, torch.float32)[1], dtype)
+    assert got.dtype == dtype and got.is_contiguous()
+    assert torch.equal(got, want.to(dtype))
+    assert torch.equal(pack_conv_s2_weight(_torch(x, w, dtype)[1]), got)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_packed_weight_keeps_the_cpu_path(shape):
+    x, w = _inputs(shape)
+    for dtype in (torch.float32, torch.bfloat16):
+        xt, wt = _torch(x, w, dtype)
+        got = conv_s2(xt, wt, packed=pack_conv_s2_weight(wt))
+        assert torch.equal(got, conv_s2_phase(xt, wt))
+        if dtype == torch.float32:
+            np.testing.assert_allclose(_nhwc(got), _jax_fp32(shape)["conv_s2_xla"],
+                                       rtol=2e-5, atol=2e-5)
+
+
 @pytest.mark.parametrize("shape", SHAPES)
 def test_phase_planes_equal_jax(shape):
     x, w = _inputs(shape)
@@ -118,6 +146,16 @@ def test_input_checks():
         conv_s2(x.requires_grad_(), w)
     with torch.no_grad():
         assert conv_s2(x, w).shape == (1, 16, 4, 4)
+
+
+def test_kernel_ab_needs_a_card(tmp_path):
+    """The A/B of K2 and K4 against an earlier build runs on the card only."""
+    from ppyolo_tpu_torch.tools import kernel_ab
+
+    if torch.cuda.is_available():
+        pytest.skip("this checks the refusal without a card")
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        kernel_ab.main(["--earlier", str(tmp_path)])
 
 
 def test_probe_entry_runs_on_cpu_without_jax():
