@@ -18,15 +18,19 @@ Phases, one JSON line each; any failure exits non-zero:
                convs, b8 bf16), held against its plain PyTorch version on
                the same inputs on the card (max-abs error <= 2% of the
                plain output's max-abs: bf16 rounding of the operands, and
-               for K3 fp32 atomics that sum in another order), and timed
-               with CUDA events over warm launches beside the plain version
-               and the bound (989 TFLOP/s bf16, 67 TFLOP/s fp32, 3.35 TB/s);
-               K4 also beside one cuDNN ``F.conv2d`` call (``library_ms``).
-               K2's and K4's weights are packed once, outside the timed
-               window, so their times are the kernel alone; both report
-               TFLOP/s, the ratio to the bound (K4 also to cuDNN) and the
-               blocks per SM the occupancy API gives beside ptxas's
-               registers and shared memory.
+               for K3 fp32 sums in another order), and timed with CUDA
+               events over warm launches beside the plain version and the
+               bound (989 TFLOP/s bf16, 67 TFLOP/s fp32, 3.35 TB/s); K4
+               also beside one cuDNN ``F.conv2d`` call (``library_ms``).
+               Weights are packed once, outside the timed window.  K1 and
+               K3 are timed inside a CUDA graph of 20 calls
+               (``kernel_ab.graph_ms``: their wrappers' host work outlasts
+               their kernels; ``wrapper_ms`` is the eager time), L2-warm
+               on one input and over
+               DISTINCT_SETS input sets in turn (``ms_distinct``).  All
+               report TFLOP/s (K3 also GB/s), the ratio to the bound (K4
+               also to cuDNN) and the blocks per SM the occupancy API gives
+               beside ptxas's registers and shared memory.
 4. probe    -- the strided-conv probe's entry point
                (``ppyolo_tpu_torch.tools.probe_strided_conv.main``) at b8
                bf16 with a short scan: cuDNN, the plain version and K4 over
@@ -65,6 +69,7 @@ Then one ``{"kernels": [...]}`` line and, last, the
 """
 from __future__ import annotations
 
+import itertools
 import json
 import subprocess
 import sys
@@ -76,6 +81,7 @@ PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core peak
 PEAK_FP32_FLOPS = 67e12      # H100 SXM fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
 TOL = 0.02                   # max-abs error / max-abs of the plain output
+DISTINCT_SETS = 8            # input sets rotated through for the L2-cold kernel times
 BATCH, SIZE = 8, 608
 WARMUP_BATCHES = 2
 WINDOWS, WINDOW_BATCHES = 5, 40   # timed serving: 200 batches, a few seconds
@@ -176,13 +182,15 @@ def phase_build():
     emit({"phase": "build", "seconds": round(time.time() - t0, 3), "ptxas": ptxas})
 
 
-def occupancy(name: str) -> dict:
+def occupancy(name: str, *args: int) -> dict:
     """The bf16 kernel's blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor,
-    exported by its library) beside ptxas's registers and shared memory."""
+    exported by its library; ``args`` picks one of K3's two kernels) beside
+    ptxas's registers and shared memory."""
     from ppyolo_tpu_torch.ops import _build
 
-    fn = {"conv_s2": "conv_s2_bf16_blocks_per_sm", "fused_stem": "fused_stem_blocks_per_sm"}[name]
-    blocks = getattr(_build.load(name), fn)()
+    fn = {"conv_s2": "conv_s2_bf16_blocks_per_sm", "fused_stem": "fused_stem_blocks_per_sm",
+          "dcn_fwd": "dcn_fwd_blocks_per_sm", "dcn_bwd": "dcn_bwd_blocks_per_sm"}[name]
+    blocks = getattr(_build.load(name), fn)(*args)
     if blocks <= 0:
         raise RuntimeError(f"{fn}: cudaError {-blocks}")
     return {"blocks_per_sm": blocks, "ptxas": ptxas_lines(_build.PTXAS_REPORT.get(name, ""))}
@@ -191,6 +199,14 @@ def occupancy(name: str) -> dict:
 def ptxas_lines(report: str) -> list:
     return [ln.strip() for ln in report.splitlines()
             if any(w in ln for w in ("registers", "spill", "smem", "Compiling"))]
+
+
+def rotating(calls):
+    """One callable that runs ``calls`` in turn, a different one each call:
+    timed over DISTINCT_SETS input sets that do not fit L2 together, it
+    gives the time on inputs the kernel has not just read."""
+    it = itertools.cycle(calls)
+    return lambda: next(it)()
 
 
 def dcn_inputs(gen, n, c, h, stride, dev):
@@ -217,39 +233,53 @@ def phase_kernels():
     from ppyolo_tpu_torch.ops.deform_conv import deform_conv2d_plain
     from ppyolo_tpu_torch.ops.deform_conv_cuda import dcn_fwd, pack_dcn_weight
     from ppyolo_tpu_torch.ops.stem import fused_stem, fused_stem_plain, pack_stem_params
+    from ppyolo_tpu_torch.tools.kernel_ab import graph_ms
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
     rows = {}
 
     # K1: stage5_0 (38x38, stride 2) once and stage5_1/5_2 (19x19) twice a batch
-    shapes, k1 = [], {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0}
+    shapes = []
+    k1 = {"ms": 0.0, "ms_distinct": 0.0, "wrapper_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+          "max_abs_err": 0.0}
+    flops_batch = 0.0
     for h, stride, per_batch in ((38, 2, 1), (19, 1, 2)):
         x, w, om, oh = dcn_inputs(gen, BATCH, 512, h, stride, dev)
-        packed = pack_dcn_weight(w)
+        packed = pack_dcn_weight(w)   # once, outside every timed window
         run_k = lambda: dcn_fwd(x, om, packed, None, ksize=(3, 3), stride=stride, padding=1)
         run_p = lambda: deform_conv2d_plain(x, w, om, stride=stride, padding=1)
         got, want = run_k(), run_p()
         torch.cuda.synchronize()
         acc = check_close(f"dcn_fwd {h}x{h}/s{stride}", got, want)
-        ms, pms = cuda_ms(run_k, 20), cuda_ms(run_p, 5)
+        gen_d = torch.Generator().manual_seed(100 + h)   # leaves gen's sequence as it was
+        sets = [dcn_inputs(gen_d, BATCH, 512, h, stride, dev) for _ in range(DISTINCT_SETS)]
+        run_d = rotating([lambda s=s: dcn_fwd(s[0], s[2], packed, None, ksize=(3, 3),
+                                              stride=stride, padding=1) for s in sets])
+        ms, msd = graph_ms(run_k, 20), graph_ms(run_d, 3 * DISTINCT_SETS)
+        wms, pms = cuda_ms(run_k, 20), cuda_ms(run_p, 5)
+        del sets
         p = BATCH * oh * oh
         flops = 2.0 * p * 9 * 512 * 512
         nbytes = (x.numel() + om.numel() + packed.numel() + p * 512) * 2
         b, by = bound_ms(flops, nbytes)
         shapes.append({"x": [BATCH, h, h, 512], "stride": stride, "per_batch": per_batch,
-                       "ms": ms, "plain_ms": pms, "bound_ms": b, "bound_by": by,
-                       "gflop": flops / 1e9, "mbytes": nbytes / 1e6, **acc})
-        k1["ms"] += per_batch * ms
-        k1["plain_ms"] += per_batch * pms
-        k1["bound_ms"] += per_batch * b
+                       "ms": ms, "ms_distinct": msd, "wrapper_ms": wms, "plain_ms": pms,
+                       "bound_ms": b, "bound_by": by, "gflop": flops / 1e9,
+                       "mbytes": nbytes / 1e6, "tflops": flops / ms / 1e9, "x_bound": ms / b,
+                       **acc})
+        for k, v in (("ms", ms), ("ms_distinct", msd), ("wrapper_ms", wms), ("plain_ms", pms),
+                     ("bound_ms", b)):
+            k1[k] += per_batch * v
+        flops_batch += per_batch * flops
         k1["max_abs_err"] = max(k1["max_abs_err"], acc["max_abs_err"])
         emit({"phase": "kernel_check", "kernel": "dcn_fwd", **shapes[-1]})
     rows["dcn_fwd"] = dict(
         name="dcn_fwd", route="cuda", source="ppyolo_tpu_torch/csrc/dcn_fwd.cu",
         replaces="ppyolo_tpu/ops/deform_conv_pallas.py:168", bound_by="operations",
         library_ms=None, per="batch of 8 (one 38x38/s2 + two 19x19/s1 launches)",
-        shapes=shapes, **k1)
+        tflops=flops_batch / k1["ms"] / 1e9, x_bound=k1["ms"] / k1["bound_ms"],
+        occupancy=occupancy("dcn_fwd"), shapes=shapes, **k1)
 
     # K2: [8, 608, 608, 3] bf16 -> [8, 152, 152, 64]
     x = torch.randn(BATCH, 3, SIZE, SIZE, generator=gen).to(dev, torch.bfloat16)
@@ -362,11 +392,13 @@ def kernel_k3(gen, dev) -> dict:
     import torch
     from ppyolo_tpu_torch.ops.deform_conv import dcn_backward
     from ppyolo_tpu_torch.ops.deform_conv_cuda import dcn_bwd, pack_dcn_weight
+    from ppyolo_tpu_torch.tools.kernel_ab import graph_ms
 
     c = 512
     shapes = []
-    k3 = {"ms": 0.0, "backward_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-          "max_abs_err": 0.0, "max_rel_err": 0.0}
+    k3 = {"ms": 0.0, "ms_distinct": 0.0, "wrapper_ms": 0.0, "backward_ms": 0.0, "plain_ms": 0.0,
+          "bound_ms": 0.0, "max_abs_err": 0.0, "max_rel_err": 0.0}
+    flops_step = bytes_step = 0.0
     for h, stride, per_step in ((38, 2, 1), (19, 1, 2)):
         x, w, om, oh = dcn_inputs(gen, BATCH, c, h, stride, dev)
         g = torch.randn(BATCH, c, oh, oh, generator=gen).to(dev, torch.bfloat16)
@@ -381,9 +413,18 @@ def kernel_k3(gen, dev) -> dict:
                 raise AssertionError(f"dcn_bwd {h}x{h}/s{stride} {name}: {a.dtype} "
                                      f"{tuple(a.shape)} vs {b.dtype} {tuple(b.shape)}")
             acc[name] = check_close(f"dcn_bwd {h}x{h}/s{stride} {name}", a, b)
-        dm = g.permute(0, 2, 3, 1).reshape(-1, c) @ pack_dcn_weight(w).t()
+        packed = pack_dcn_weight(w)
+        dm = g.permute(0, 2, 3, 1).reshape(-1, c) @ packed
         run_k = lambda: dcn_bwd(x, om, dm, ksize=(3, 3), stride=stride, padding=1)
-        ms, bms, pms = cuda_ms(run_k, 20), cuda_ms(run_b, 20), cuda_ms(run_p, 3)
+        sets, gen_d = [], torch.Generator().manual_seed(200 + h)
+        for _ in range(DISTINCT_SETS):
+            xs, _, oms, _ = dcn_inputs(gen_d, BATCH, c, h, stride, dev)
+            sets.append((xs, oms, torch.randn(dm.shape, generator=gen_d).to(dev, torch.bfloat16)))
+        run_d = rotating([lambda s=s: dcn_bwd(*s, ksize=(3, 3), stride=stride, padding=1)
+                          for s in sets])
+        ms, msd = graph_ms(run_k, 20), graph_ms(run_d, 3 * DISTINCT_SETS)
+        del sets
+        wms, bms, pms = cuda_ms(run_k, 20), cuda_ms(run_b, 20), cuda_ms(run_p, 3)
         p = BATCH * oh * oh
         elems = p * 9 * c
         # per (pixel, tap, channel): bilinear sample 7, dmod 2, dsamp 1,
@@ -395,10 +436,17 @@ def kernel_k3(gen, dev) -> dict:
         b, by = bound_ms(flops, nbytes, PEAK_FP32_FLOPS)
         err = max(a["max_abs_err"] / max(a["max_abs_ref"], 1e-30) for a in acc.values())
         shapes.append({"x": [BATCH, h, h, c], "stride": stride, "per_step": per_step,
-                       "ms": ms, "backward_ms": bms, "plain_ms": pms, "bound_ms": b,
-                       "bound_by": by, "mflop": flops / 1e6, "mbytes": nbytes / 1e6,
+                       "ms": ms, "ms_distinct": msd, "wrapper_ms": wms, "backward_ms": bms,
+                       "plain_ms": pms,
+                       "bound_ms": b, "bound_by": by, "mflop": flops / 1e6,
+                       "mbytes": nbytes / 1e6, "tflops": flops / ms / 1e9,
+                       "gb_per_s": nbytes / ms / 1e6, "x_bound": ms / b,
                        "gemm_gflop_each": 2.0 * p * c * 9 * c / 1e9, "checks": acc})
+        flops_step += per_step * flops
+        bytes_step += per_step * nbytes
         k3["ms"] += per_step * ms
+        k3["ms_distinct"] += per_step * msd
+        k3["wrapper_ms"] += per_step * wms
         k3["backward_ms"] += per_step * bms
         k3["plain_ms"] += per_step * pms
         k3["bound_ms"] += per_step * b
@@ -411,6 +459,9 @@ def kernel_k3(gen, dev) -> dict:
         replaces="ppyolo_tpu/ops/deform_conv_pallas.py:261",
         bound_by=bound_by.pop() if len(bound_by) == 1 else "mixed",
         library_ms=None, per="training step of 8 (one 38x38/s2 + two 19x19/s1 launches)",
+        tflops=flops_step / k3["ms"] / 1e9, gb_per_s=bytes_step / k3["ms"] / 1e6,
+        x_bound=k3["ms"] / k3["bound_ms"],
+        occupancy={"main": occupancy("dcn_bwd", 0), "gather": occupancy("dcn_bwd", 1)},
         shapes=shapes, **k3)
 
 
@@ -587,8 +638,8 @@ def phase_profile(det, images, sizes, batch_ms):
 
 
 KERNEL_CLASSES = (   # (class, substrings of the kernel name), first match wins
-    ("port_kernels", ("dcn_fwd_kernel", "dcn_bwd_kernel", "fused_stem_kernel",
-                      "conv_s2_")),
+    ("port_kernels", ("dcn_fwd_kernel", "dcn_bwd_kernel", "dcn_bwd_gather",
+                      "fused_stem_kernel", "conv_s2_")),
     ("conv_gemm", ("xmma", "nvjet", "cutlass", "gemm", "cudnn", "dgrad", "wgrad")),
     ("copy_memset", ("Memcpy", "Memset", "copy_kernel", "CatArray")),
     ("elementwise_reduce", ("at::native",)),
@@ -726,8 +777,8 @@ def phase_train_profile(state, cfg, host, step_ms: float):
             state, _ = step_fn(state, to_device_batch(host[i % 2], dev), gen)
         torch.cuda.synchronize()
     total, top, by_class = device_time(prof, 3, 30)
-    ours = {k: sum(e["ms"] for e in top if k in e["name"])
-            for k in ("dcn_fwd_kernel", "dcn_bwd_kernel")}
+    ours = {k: sum(e.self_device_time_total for e in prof.key_averages() if k in e.key) / 3e3
+            for k in ("dcn_fwd_kernel", "dcn_bwd_kernel", "dcn_bwd_gather")}
     emit({"phase": "train_profile", "steps": 3, "ms_per_step_median": step_ms,
           "device_ms_per_step": total, "device_idle_share": max(0.0, 1.0 - total / step_ms),
           "kernel_ms_per_step": ours, "by_class": by_class, "top": top})

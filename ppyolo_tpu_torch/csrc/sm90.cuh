@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: cp.async with
 // zero-fill, the 128-byte shared-memory swizzle, wgmma descriptors and the
-// wgmma fence / commit / wait, the wgmma shapes the kernels issue, mma.sync
-// and ldmatrix.
+// wgmma fence / commit / wait, the wgmma shapes the kernels issue, named
+// barriers, mma.sync and ldmatrix.
 //
 // Operand layouts.  Both wgmma operands that come from shared memory are
 // K-major in the 128-byte swizzle: an "atom" is 8 rows of 64 bf16 (128
@@ -64,6 +64,14 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
 // the other warps of the block running.
 __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Arrive at barrier `id` without waiting: with named_barrier on the other
+// side, the producer / consumer hand-off of a warp-specialised ring (the
+// arriving threads' earlier writes are visible to the waiting ones after
+// the barrier completes).
+__device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {

@@ -199,7 +199,7 @@ def dcn_backward(x: torch.Tensor, weight: torch.Tensor, om: torch.Tensor,
         op = torch.bfloat16
     else:
         op = x.dtype if operand_dtype is None else operand_dtype
-    w2 = weight.permute(2, 3, 1, 0).reshape(k2 * C, out_c).to(op)   # pack_dcn_weight
+    w2 = weight.permute(2, 3, 1, 0).reshape(k2 * C, out_c).to(op)   # pack_dcn_weight(weight).t()
     gf = g.permute(0, 2, 3, 1).reshape(-1, out_c).to(op)
     dm = gf @ w2.t()                                             # [N*P, k2*C]
     xo = x.to(op).contiguous(memory_format=torch.channels_last)

@@ -5,11 +5,14 @@ K1, ``dcn_fwd`` (``csrc/dcn_fwd.cu``), replaces
 version is ``ops/deform_conv.py::deform_conv2d_plain``.  K3, ``dcn_bwd``
 (``csrc/dcn_bwd.cu``), replaces ``_dcn_bwd_pallas``'s kernel; its plain
 version is ``ops/deform_conv.py::dcn_bwd_plain``.  ``dcn_fwd.launches``
-and ``dcn_bwd.launches`` count the launches.
+and ``dcn_bwd.launches`` count the wrappers' launching calls (one call of
+``dcn_bwd`` launches K3's two kernels, the per-(pixel, tap) pass and the
+gather that sums dx).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -18,9 +21,14 @@ from . import _build
 from .deform_conv import out_size
 
 _ARGTYPES = {"dcn_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12 + [ctypes.c_void_p],
-             "dcn_bwd": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [ctypes.c_void_p]}
+             "dcn_bwd": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 12 + [ctypes.c_void_p]}
+# entries of a dx pixel's bin in K3 (dcn_bwd.cu): corners beyond it in one
+# pixel go to an overflow list (at stage 5 a pixel takes ~9 at 38x38/s2 and
+# ~36 at 19x19/s1 on average)
+BIN_CAP = 64
 
 
+@functools.lru_cache(maxsize=None)
 def _fn(name: str):
     fn = getattr(_build.load(name), f"{name}_launch")
     fn.argtypes = _ARGTYPES[name]
@@ -29,10 +37,11 @@ def _fn(name: str):
 
 
 def pack_dcn_weight(weight: torch.Tensor) -> torch.Tensor:
-    """OIHW [outC, C, kh, kw] -> [kh*kw*C, outC] bf16, tap-major then
-    input channel (the flatten order of an HWIO kernel)."""
+    """OIHW [outC, C, kh, kw] -> K-major [outC, kh*kw*C] bf16, the rows of
+    K1's wgmma B tiles: column tap * C + c (the flatten order of an HWIO
+    kernel), i.e. the transpose of the ``[k2*C, outC]`` GEMM operand."""
     out_c, c, kh, kw = weight.shape
-    return (weight.permute(2, 3, 1, 0).reshape(kh * kw * c, out_c)
+    return (weight.permute(0, 2, 3, 1).reshape(out_c, kh * kw * c)
             .to(torch.bfloat16).contiguous())
 
 
@@ -50,7 +59,7 @@ def dcn_fwd(x: torch.Tensor, om: torch.Tensor, packed_weight: torch.Tensor,
     k2 = kh * kw
     N, C, H, W = x.shape
     oH, oW = out_size(H, kh, stride, padding), out_size(W, kw, stride, padding)
-    out_c = packed_weight.shape[1]
+    out_c = packed_weight.shape[0]
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"dcn_fwd: x dtype {x.dtype} not supported")
     if om.dtype != x.dtype:
@@ -58,8 +67,10 @@ def dcn_fwd(x: torch.Tensor, om: torch.Tensor, packed_weight: torch.Tensor,
     if tuple(om.shape) != (N, 3 * k2, oH, oW):
         raise ValueError(f"dcn_fwd: om shape {tuple(om.shape)} != "
                          f"{(N, 3 * k2, oH, oW)}")
-    if packed_weight.dtype != torch.bfloat16 or tuple(packed_weight.shape) != (k2 * C, out_c):
-        raise ValueError("dcn_fwd: packed_weight must be bf16 [k2*C, outC]")
+    if packed_weight.dtype != torch.bfloat16 or tuple(packed_weight.shape) != (out_c, k2 * C):
+        raise ValueError(f"dcn_fwd: packed_weight {packed_weight.dtype} "
+                         f"{tuple(packed_weight.shape)} is not pack_dcn_weight's bf16 "
+                         f"K-major [outC, {k2 * C}]")
     if C % 32 or out_c % 64:
         raise ValueError(f"dcn_fwd: needs C % 32 == 0 and outC % 64 == 0, "
                          f"got C={C}, outC={out_c}")
@@ -100,7 +111,9 @@ def dcn_bwd(x: torch.Tensor, om: torch.Tensor, dm: torch.Tensor, *,
     x [N,C,H,W] bf16 and om [N,3*k2,oH,oW] (x's layer dtype, bf16 or fp32)
     in channels_last memory; dm [N*oH*oW, k2*C] bf16 (``g @ W^T``).
     Returns dx fp32 [N,C,H,W], d_om in om's dtype (both channels_last) and
-    cols [N*oH*oW, k2*C] bf16, as ``dcn_bwd_plain``."""
+    cols [N*oH*oW, k2*C] bf16, as ``dcn_bwd_plain``.  Beside the outputs
+    it allocates the dx pixels' bins (``BIN_CAP`` entries each), their
+    zeroed counts and an overflow list, which K3's gather reads."""
     if x.device.type != "cuda":
         raise ValueError(f"dcn_bwd needs CUDA tensors, got {x.device}")
     kh, kw = ksize
@@ -127,15 +140,19 @@ def dcn_bwd(x: torch.Tensor, om: torch.Tensor, dm: torch.Tensor, *,
     if xh.data_ptr() % 16 or dm.data_ptr() % 16:
         raise ValueError("dcn_bwd: x and dm must be 16-byte aligned")
     cl = torch.channels_last
-    dx = torch.zeros((N, H, W, C), dtype=torch.float32, device=x.device).permute(0, 3, 1, 2)
+    dx = torch.empty((N, C, H, W), dtype=torch.float32, device=x.device, memory_format=cl)
+    cnt = torch.zeros(N * H * W + 1, dtype=torch.int32, device=x.device)
     d_om = torch.empty((N, 3 * k2, oH, oW), dtype=om.dtype, device=x.device,
                        memory_format=cl)
     cols = torch.empty_like(dm)
+    bins = torch.empty((N * H * W * BIN_CAP, 2), dtype=torch.int32, device=x.device)
+    over = torch.empty((N * oH * oW * k2 * 4, 4), dtype=torch.int32, device=x.device)
     launch = _fn("dcn_bwd")
     dcn_bwd.launches += 1
     err = launch(xh.data_ptr(), omh.data_ptr(), dm.data_ptr(), dx.data_ptr(),
-                 d_om.data_ptr(), cols.data_ptr(), int(om.dtype == torch.float32),
-                 N, H, W, C, oH, oW, kh, kw, stride, padding,
+                 d_om.data_ptr(), cols.data_ptr(), cnt.data_ptr(), bins.data_ptr(),
+                 over.data_ptr(), BIN_CAP,
+                 int(om.dtype == torch.float32), N, H, W, C, oH, oW, kh, kw, stride, padding,
                  torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"dcn_bwd kernel launch failed: cudaError {err}")

@@ -177,6 +177,40 @@ def test_grads_reach_x_offsets_and_weight_through_conv_norm_act():
         assert not needs_grad(x, params[0], om)
 
 
+def _extern_c(name):
+    """{function: parameter list} of the extern "C" functions of csrc/<name>.cu."""
+    src = (Path(stem.__file__).parents[1] / "csrc" / f"{name}.cu").read_text()
+    return {m.group(1): m.group(2)
+            for m in re.finditer(r'extern "C" int (\w+)\((.*?)\)', src, re.S)}
+
+
+@pytest.mark.parametrize("name,nargs", [("dcn_fwd", 0), ("dcn_bwd", 1), ("fused_stem", 0),
+                                        ("conv_s2", 0)])
+def test_occupancy_exports_take_what_chip_smoke_passes(name, nargs):
+    """Each library exports ``<name>*_blocks_per_sm``, which chip_smoke calls
+    through ctypes with Python ints and no argtypes: only int parameters, as
+    many as it passes (K3's names one of its two kernels).  The library
+    exports nothing else besides its launch."""
+    fns = _extern_c(name)
+    occ = [f for f in fns if f.endswith("_blocks_per_sm")]
+    assert len(occ) == 1 and set(fns) == {occ[0], f"{name}_launch"}
+    params = [p.strip() for p in fns[occ[0]].split(",") if p.strip()]
+    assert len(params) == nargs and all(p.split()[0] == "int" for p in params)
+
+
+def test_kernel_ab_earlier_dcn_interfaces():
+    """kernel_ab binds PR 4's K1 with today's C interface (only the weight's
+    layout changed) and PR 4's K3 without the bins (three pointers and a
+    capacity)."""
+    from ppyolo_tpu_torch.tools import kernel_ab
+
+    cur = deform_conv_cuda._ARGTYPES
+    assert kernel_ab._EARLIER_ARGTYPES["dcn_fwd"] == cur["dcn_fwd"]
+    assert kernel_ab._EARLIER_ARGTYPES["dcn_bwd"] == cur["dcn_bwd"][:6] + cur["dcn_bwd"][10:]
+    with pytest.raises(ValueError, match="not a subset"):
+        kernel_ab.main(["--earlier", ".", "--kernels", "dcn_fwd,dcn_bwd2"])
+
+
 @pytest.mark.parametrize("name", ["dcn_fwd", "dcn_bwd", "fused_stem", "conv_s2"])
 def test_launch_argtypes_match_the_c_signatures(name):
     """The ctypes argtypes of each kernel's wrapper follow its extern "C"

@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from ppyolo_tpu_torch.ops.deform_conv import deform_conv2d, deform_conv2d_plain
+from ppyolo_tpu_torch.ops.deform_conv import dcn_bwd_plain, deform_conv2d, deform_conv2d_plain
 from ppyolo_tpu_torch.ops.stem import fused_stem, fused_stem_plain
 
 
@@ -49,9 +49,15 @@ def _cuda_or_skip():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(2, 9, 9, 32, 64, 1), (1, 38, 38, 64, 128, 2),
-                                   (3, 13, 17, 96, 64, 1)])
+                                   (3, 13, 17, 96, 64, 1), (3, 11, 7, 64, 128, 1),
+                                   (1, 19, 19, 96, 192, 1), (2, 20, 20, 32, 320, 2),
+                                   (8, 38, 38, 512, 512, 2), (8, 19, 19, 512, 512, 1)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_dcn_kernel_matches_plain(shape, dtype):
+    """K1 at the edges of its 64-pixel x 256-column tile and 64-channel
+    k-step: ragged pixel tiles (81, 231, 800 pixels), outC = 64, 192 and 320
+    (a consumer warpgroup half or wholly past outC), C = 32 and 96 (a
+    half-empty k-step), and the stage-5 shapes at b8."""
     dev = _cuda_or_skip()
     n, h, w, c, oc, stride = shape
     x, wt, om = _dcn_inputs(3, n, h, w, c, oc, stride)
@@ -63,6 +69,30 @@ def test_dcn_kernel_matches_plain(shape, dtype):
     torch.cuda.synchronize()
     assert got.dtype == dtype
     assert (got.float() - want).abs().max() <= 0.02 * want.abs().max()
+
+
+@pytest.mark.gpu
+def test_dcn_kernel_deterministic_and_layout_checked():
+    """Two calls of K1 on one input give the same bits (no atomics, one
+    order of sums), a bias is added in fp32, and a weight in the old
+    [k2*C, outC] layout raises."""
+    from ppyolo_tpu_torch.ops.deform_conv_cuda import dcn_fwd, pack_dcn_weight
+
+    dev = _cuda_or_skip()
+    x, wt, om = _dcn_inputs(8, 2, 19, 19, 512, 512, 1)
+    xt = _nchw(x, torch.bfloat16).to(dev).contiguous(memory_format=torch.channels_last)
+    om = _nchw(om, torch.bfloat16).to(dev).contiguous(memory_format=torch.channels_last)
+    packed = pack_dcn_weight(torch.from_numpy(wt).to(dev))
+    kw = dict(ksize=(3, 3), stride=1, padding=1)
+    a = dcn_fwd(xt, om, packed, None, **kw)
+    assert torch.equal(a, dcn_fwd(xt, om, packed, None, **kw))
+    bias = torch.linspace(-1, 1, 512, device=dev)
+    want = deform_conv2d_plain(xt, torch.from_numpy(wt).to(dev), om, stride=1, padding=1,
+                               bias=bias).float()
+    got = dcn_fwd(xt, om, packed, bias, **kw).float()
+    assert (got - want).abs().max() <= 0.02 * want.abs().max()
+    with pytest.raises(ValueError, match="pack_dcn_weight"):
+        dcn_fwd(xt, om, packed.t().contiguous(), None, **kw)
 
 
 @pytest.mark.gpu
@@ -137,6 +167,39 @@ def test_dcn_backward_kernel_matches_plain(shape, dtype):
     want = dcn_backward(x, wt, om, g, stride=stride, padding=1, plain=True)
     torch.cuda.synchronize()
     for name, a, b in zip(("dx", "dW", "d_om"), got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert torch.isfinite(a).all() and _close(a, b), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offsets", ["near", "far", "mixed"])
+@pytest.mark.parametrize("shape", [(8, 38, 38, 512, 512, 2), (8, 19, 19, 512, 512, 1),
+                                   (2, 13, 17, 96, 64, 1), (1, 9, 9, 40, 64, 2)])
+def test_dcn_backward_kernel_bins(shape, offsets):
+    """K3 against dcn_bwd_plain with offsets within a pixel (every corner
+    binned near its tap), offsets of 4 to 3H rows (clamped onto the image's
+    edges and corners: bins far past their capacity, so the overflow list),
+    and both; at the stage-5 shapes and with C = 96 and 40 (a ragged
+    256-channel step)."""
+    from ppyolo_tpu_torch.ops.deform_conv_cuda import dcn_bwd
+
+    dev = _cuda_or_skip()
+    n, h, w, c, oc, stride = shape
+    x, wt, om, g = _bwd_inputs(12, n, h, w, c, oc, stride, torch.bfloat16, dev)
+    r = np.random.RandomState(13)
+    oh, ow = om.shape[2:]
+    far = r.choice([-1.0, 1.0], (n, 18, oh, ow)) * r.uniform(4.0, 3.0 * h, (n, 18, oh, ow))
+    near = r.uniform(-0.99, 0.99, (n, 18, oh, ow))
+    off = {"near": near, "far": far,
+           "mixed": np.where(r.rand(n, 18, oh, ow) < 0.5, near, far)}[offsets]
+    om = om.clone()
+    om[:, :18] = torch.from_numpy(off).to(dev, om.dtype)
+    dm = (g.permute(0, 2, 3, 1).reshape(-1, oc).float()
+          @ wt.permute(0, 2, 3, 1).reshape(oc, -1)).to(torch.bfloat16)
+    got = dcn_bwd(x, om, dm, ksize=(3, 3), stride=stride, padding=1)
+    want = dcn_bwd_plain(x, om, dm, ksize=(3, 3), stride=stride, padding=1)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dx", "d_om", "cols"), got, want):
         assert a.dtype == b.dtype and a.shape == b.shape, name
         assert torch.isfinite(a).all() and _close(a, b), name
 

@@ -73,6 +73,19 @@ def test_plain_dcn_matches_jax_fp32(shape):
     np.testing.assert_allclose(nhwc(got), want, rtol=1e-4, atol=1e-4)
 
 
+def test_packed_dcn_weight_is_the_k_major_hwio_flatten():
+    """K1's weight: K-major [outC, k2*C] bf16 whose column tap*C + c is the
+    JAX HWIO kernel's row (its [k2*C, outC] flatten, transposed), i.e. the
+    transpose of the dm product's operand in dcn_backward."""
+    from ppyolo_tpu_torch.ops.deform_conv_cuda import pack_dcn_weight
+
+    _, wt, _, _ = _dcn_inputs(4, 1, 5, 5, 8, 16, 1)
+    packed = pack_dcn_weight(oihw(wt))
+    want = torch.from_numpy(np.ascontiguousarray(wt.reshape(9 * 8, 16).T)).to(torch.bfloat16)
+    assert packed.dtype == torch.bfloat16 and packed.is_contiguous()
+    assert torch.equal(packed, want)
+
+
 def test_dcn_dispatch_on_cpu_uses_plain():
     x, wt, off, msk = _dcn_inputs(5, 1, 6, 6, 4, 8, 1)
     bias = torch.linspace(-1, 1, 8)
