@@ -64,6 +64,30 @@ Phases, one JSON line each; any failure exits non-zero:
                on the CPU path (the kernels' plain versions) at 128x128,
                batch 2, DropBlock off: losses and stage 5's gradients.
 
+10. entry  -- the training entry a user runs
+               (``ppyolo_tpu_torch.entry.train.run_training``) on full
+               ppyolo_2x as its recipe sets it (``freeze_at=5``, bf16, EMA,
+               DropBlock, mixup, 5 loader threads, the 10 sizes from 320 to
+               608, batch 8) over a synthetic COCO set (ENTRY_TRAIN train
+               and ENTRY_VAL val jpgs at COCO-like sizes, 80 classes).
+               First K1 and K2 are held against their plain versions (TOL)
+               at every shape the entry gives them: K1 on the stage-5 grids
+               of each of the 10 sizes (stride 2 on size/16, stride 1 on
+               size/32) at batch 8, K1 and K2 at the eval's batch 4 at 608.
+               Then ENTRY_STEPS steps, a checkpoint at the midpoint and a COCO
+               eval at the end at 608, batch 4.  Counters zeroed before and
+               read after: K1 3 a step and 3 an eval batch, K2 1 an eval
+               batch, K3 and K4 never.  Prints the loader's own img/s (the
+               recipe's 5 threads), step ms by input size, the files
+               written, the 12 mAP stats (finite, in [-1, 1]) and eval
+               img/s; STEADY_STEPS more steps on the state it left (one sync
+               at the end), fed by the live loader and by the same batches
+               made beforehand, with device time by kernel class and the
+               idle share of each; and the resume check:
+               RESUME_STEPS straight against half, ``resume_state`` and the
+               rest (DropBlock off, cuDNN deterministic), bitwise or within
+               twice the spread of two straight runs.
+
 Then one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.  Imports nothing of JAX.
 """
@@ -93,6 +117,11 @@ CHECK_SIZE, CHECK_BATCH = 128, 2  # card-vs-CPU training step
 # rounding they flip account for the rest
 STAGE5_TOL = 0.1
 PROBE_ARGS = ["--batch", str(BATCH), "--scan", "8", "--disp", "2", "--dtype", "bf16"]
+ENTRY_TRAIN, ENTRY_VAL = 64, 16  # synthetic COCO images of the entry phase
+ENTRY_STEPS, ENTRY_EVAL_BATCH = 16, 4
+LOADER_BATCHES = 8               # the loader alone, after one warm batch
+STEADY_STEPS = 8                 # steady steps after the entry's run
+RESUME_STEPS = 16                # the resume check: 8 + 8 against 16
 # the path whose run gives each kernel's ``launches``
 MAIN_PATH = {"dcn_fwd": "serving", "fused_stem": "serving", "dcn_bwd": "training",
              "conv_s2": "probe"}
@@ -227,12 +256,28 @@ def dcn_inputs(gen, n, c, h, stride, dev):
             om.contiguous(memory_format=cl), oh)
 
 
+def stem_inputs(gen, n, size, dev):
+    """A bf16 channels_last image batch, the three convs' folded bf16
+    weights and fp32 biases, and their packing."""
+    import torch
+    from ppyolo_tpu_torch.ops.stem import pack_stem_params
+
+    x = torch.randn(n, 3, size, size, generator=gen).to(dev, torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last)
+    ws = []
+    for cin, cout in ((3, 32), (32, 32), (32, 64)):
+        ws.append((torch.randn(cout, cin, 3, 3, generator=gen) * (2.0 / (cin * 9)) ** 0.5)
+                  .to(dev, torch.bfloat16))
+        ws.append((torch.randn(cout, generator=gen) * 0.1).to(dev))
+    return x, ws, pack_stem_params(*ws)
+
+
 def phase_kernels():
     """Each kernel vs its plain version at the main path's shapes, timed."""
     import torch
     from ppyolo_tpu_torch.ops.deform_conv import deform_conv2d_plain
     from ppyolo_tpu_torch.ops.deform_conv_cuda import dcn_fwd, pack_dcn_weight
-    from ppyolo_tpu_torch.ops.stem import fused_stem, fused_stem_plain, pack_stem_params
+    from ppyolo_tpu_torch.ops.stem import fused_stem, fused_stem_plain
     from ppyolo_tpu_torch.tools.kernel_ab import graph_ms
 
     dev = torch.device("cuda")
@@ -282,14 +327,7 @@ def phase_kernels():
         occupancy=occupancy("dcn_fwd"), shapes=shapes, **k1)
 
     # K2: [8, 608, 608, 3] bf16 -> [8, 152, 152, 64]
-    x = torch.randn(BATCH, 3, SIZE, SIZE, generator=gen).to(dev, torch.bfloat16)
-    x = x.contiguous(memory_format=torch.channels_last)
-    ws = []
-    for cin, cout in ((3, 32), (32, 32), (32, 64)):
-        ws.append((torch.randn(cout, cin, 3, 3, generator=gen) * (2.0 / (cin * 9)) ** 0.5)
-                  .to(dev, torch.bfloat16))
-        ws.append((torch.randn(cout, generator=gen) * 0.1).to(dev))
-    packed = pack_stem_params(*ws)   # once, outside every timed window
+    x, ws, packed = stem_inputs(gen, BATCH, SIZE, dev)   # packed outside every timed window
     run_k = lambda: fused_stem(x, *ws, packed=packed)
     run_p = lambda: fused_stem_plain(x, *ws)
     got, want = run_k(), run_p()
@@ -694,8 +732,8 @@ def synthetic_train_batch(cfg, seed: int, batch: int, size: int) -> dict:
 
 
 def phase_training(smi: str):
-    """The training path through ``run_training``; windows are timed by the
-    batch iterator, which synchronizes at each window's edge."""
+    """The training path through ``run_training``; windows are timed by
+    ``after_step``, which synchronizes at each window's edge."""
     import numpy as np
     import torch
     from ppyolo_tpu_torch.train.loop import run_training
@@ -709,19 +747,19 @@ def phase_training(smi: str):
     n_steps = TRAIN_WARMUP + TRAIN_WINDOWS * TRAIN_WINDOW_STEPS
     edges = []
 
-    def batches():
-        for i in range(n_steps + 1):   # the last request ends the last window
-            if i >= TRAIN_WARMUP and (i - TRAIN_WARMUP) % TRAIN_WINDOW_STEPS == 0:
-                torch.cuda.synchronize()
-                edges.append(time.perf_counter())
-            yield host[i % 2]
+    def mark(st):   # after the warm-up steps and after each window
+        j = st.step - TRAIN_WARMUP
+        if j >= 0 and j % TRAIN_WINDOW_STEPS == 0:
+            torch.cuda.synchronize()
+            edges.append(time.perf_counter())
 
     logged = []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
-    state, eval_sd = run_training(cfg, batches(), device="cuda", max_iters=n_steps,
-                                  model=model, log_fn=lambda i, v: logged.append((i, v)))
+    state, eval_sd = run_training(cfg, (host[i % 2] for i in range(n_steps)), device="cuda",
+                                  max_iters=n_steps, model=model, after_step=mark,
+                                  log_fn=lambda i, v: logged.append((i, v)))
     torch.cuda.synchronize()
     launches = read_counts()
     want = {"dcn_fwd": 3 * n_steps, "dcn_bwd": 3 * n_steps, "fused_stem": 0, "conv_s2": 0}
@@ -764,17 +802,17 @@ def phase_train_profile(state, cfg, host, step_ms: float):
     median step time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from ppyolo_tpu_torch.train.loop import to_device_batch
+    from ppyolo_tpu_torch.data.loader import host_to_device
     from ppyolo_tpu_torch.train.train_step import make_train_step
 
     dev = torch.device("cuda")
     step_fn = make_train_step(state.model, cfg, compute_dtype=torch.bfloat16)
     gen = torch.Generator(device=dev).manual_seed(7)
-    state, _ = step_fn(state, to_device_batch(host[0], dev), gen)
+    state, _ = step_fn(state, host_to_device(host[0], dev), gen)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for i in range(3):
-            state, _ = step_fn(state, to_device_batch(host[i % 2], dev), gen)
+            state, _ = step_fn(state, host_to_device(host[i % 2], dev), gen)
         torch.cuda.synchronize()
     total, top, by_class = device_time(prof, 3, 30)
     ours = {k: sum(e.self_device_time_total for e in prof.key_averages() if k in e.key) / 3e3
@@ -806,8 +844,8 @@ def phase_train_check():
     import numpy as np
     import torch
     from ppyolo_tpu_torch.ops import conv as conv_mod
+    from ppyolo_tpu_torch.data.loader import host_to_device
     from ppyolo_tpu_torch.ops.deform_conv import DeformConv2dFunction
-    from ppyolo_tpu_torch.train.loop import to_device_batch
     from ppyolo_tpu_torch.train.train_step import init_train_state, make_train_step
 
     cl = torch.channels_last
@@ -841,7 +879,7 @@ def phase_train_check():
         model = build_model(cfg, dev).to(memory_format=cl)
         state = init_train_state(model, cfg)
         with dcn_rounding(emulate):
-            _, losses = make_train_step(model, cfg)(state, to_device_batch(host, torch.device(dev)))
+            _, losses = make_train_step(model, cfg)(state, host_to_device(host, torch.device(dev)))
         lv = torch.tensor([float(v) for k, v in losses.items() if k != "lr"], dtype=torch.float64)
         return lv, torch.cat(stage5_grads(model))
 
@@ -884,6 +922,330 @@ def phase_train_check():
                              f"relative L2 of the gradients {got} > {STAGE5_TOL}")
 
 
+def entry_dataset(root: Path) -> dict:
+    """The synthetic COCO sets of the entry phase: ENTRY_TRAIN train and
+    ENTRY_VAL val jpgs at COCO-like sizes, 80 classes, 1-6 boxes each."""
+    import numpy as np
+    from ppyolo_tpu_torch.data.synthetic import make_synthetic_coco
+
+    kw = dict(image_sizes=((480, 640), (640, 480), (427, 640), (640, 427), (512, 512)),
+              max_objects=6, box_range=(32, 224))
+    train = make_synthetic_coco(str(root / "train"), ENTRY_TRAIN, 80, np.random.RandomState(0), **kw)
+    val = make_synthetic_coco(str(root / "val"), ENTRY_VAL, 80, np.random.RandomState(1), **kw)
+    return {"train": train, "val": val}
+
+
+def entry_config(data: dict, root: Path, **train):
+    """ppyolo_2x as its recipe trains it (``freeze_at=5``, EMA, DropBlock,
+    mixup, 5 loader threads, the 10 sizes from 320 to 608, batch 8), bf16,
+    on the synthetic sets; ``train`` overrides ``train_cfg``."""
+    from configs import PPYOLO_2x_Config
+
+    cfg = PPYOLO_2x_Config()
+    cfg.train_path, cfg.train_pre_path = data["train"]
+    cfg.val_path, cfg.val_pre_path = data["val"]
+    cfg.classes_path = str(root / "no_classes.txt")
+    cfg.train_cfg = dict(cfg.train_cfg, **dict(dict(
+        batch_size=BATCH, precision="bf16", max_iters=ENTRY_STEPS, save_iter=ENTRY_STEPS // 2,
+        eval_iter=ENTRY_STEPS, log_iter=1, model_path=str(root / "missing.npz")), **train))
+    cfg.eval_cfg = dict(cfg.eval_cfg, eval_batch_size=ENTRY_EVAL_BATCH)
+    return cfg
+
+
+def read_metrics(wdir: Path):
+    import json
+
+    rows = [json.loads(line) for line in open(wdir / "metrics.jsonl")]
+    return [r for r in rows if "total_loss" in r], [r for r in rows if "box_ap" in r]
+
+
+def state_arrays(state) -> dict:
+    """Every tensor of a train state the resume must restore, on the host."""
+    out = {f"params/{k}": v for k, v in state.model.state_dict().items()}
+    out.update({f"velocity/{k}": v for k, v in state.velocity().items()})
+    out.update({f"ema/{k}": v for k, v in state.ema.items()})
+    return {k: v.detach().double().cpu() for k, v in out.items()}
+
+
+def state_diff(a: dict, b: dict) -> dict:
+    """Max abs difference and relative L2 over all leaves, and the count of
+    leaves that differ."""
+    import torch
+
+    num = den = 0.0
+    worst, n_diff = 0.0, 0
+    for k in a:
+        d = a[k] - b[k]
+        worst = max(worst, float(d.abs().max())) if d.numel() else worst
+        n_diff += int(not torch.equal(a[k], b[k]))
+        num += float(d.square().sum())
+        den += float(b[k].square().sum())
+    return {"max_abs": worst, "rel_l2": (num / max(den, 1e-300)) ** 0.5, "leaves_differ": n_diff}
+
+
+def phase_entry(smi: str):
+    """The training entry (``entry/train.py::run_training``) end to end on
+    full ppyolo_2x: COCO loader, multi-scale bf16 steps, checkpoints, the
+    periodic COCO eval; the loader alone; steady steps on the state it
+    left, with and without the live loader; the resume check under
+    deterministic cuDNN."""
+    import os
+    import shutil
+    import statistics
+
+    import numpy as np
+    import torch
+    from ppyolo_tpu_torch import native
+    from ppyolo_tpu_torch.data.coco import CocoJson, category_maps, data_clean
+    from ppyolo_tpu_torch.data.loader import train_batches
+    from ppyolo_tpu_torch.entry.train import run_training
+
+    root = REPO / "build" / "chip_smoke_entry"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    t0 = time.time()
+    data = entry_dataset(root)
+    lib = native.get_lib()
+    out = {"phase": "entry", "model": "ppyolo_2x", "freeze_at": 5, "batch": BATCH,
+           "precision": "bf16", "train_images": ENTRY_TRAIN, "val_images": ENTRY_VAL,
+           "dataset_s": time.time() - t0, "native_loaded": lib is not None,
+           "native_lib": None if lib is None else Path(lib._name).name,
+           "host_cpus": os.cpu_count(), "nvidia_smi": smi}
+    cfg = entry_config(data, root)
+    out["kernel_checks"] = entry_kernel_checks(cfg)
+
+    # the loader alone: the host's own rate with the recipe's threads
+    coco = CocoJson(cfg.train_path)
+    records = data_clean(coco, coco.get_img_ids(), category_maps(coco)[0], cfg.train_pre_path)
+    gen = train_batches(records, cfg)
+    next(gen)
+    t0 = time.perf_counter()
+    sizes = [next(gen)["shape"] for _ in range(LOADER_BATCHES)]
+    loader_s = time.perf_counter() - t0
+    gen.close()
+    out.update(loader_threads=cfg.train_cfg["num_threads"], loader_batches=LOADER_BATCHES,
+               loader_img_per_s=BATCH * LOADER_BATCHES / loader_s, loader_sizes=sizes)
+
+    # the recipe's run: ENTRY_STEPS steps, a checkpoint at the midpoint, an
+    # eval at the end
+    wdir = root / "weights"
+    zero_counts()
+    t0 = time.time()
+    state = run_training(cfg, weights_dir=str(wdir))
+    torch.cuda.synchronize()
+    run_s = time.time() - t0
+    launches = read_counts()
+    steps, evals = read_metrics(wdir)
+    n_eval_batches = -(-ENTRY_VAL // ENTRY_EVAL_BATCH)
+    want = {"dcn_fwd": 3 * ENTRY_STEPS + 3 * n_eval_batches, "dcn_bwd": 0,
+            "fused_stem": n_eval_batches, "conv_s2": 0}
+    if state.step != ENTRY_STEPS or launches != want:
+        raise AssertionError(f"entry run: {state.step} steps, launches {launches}, want {want}")
+    if len(steps) != ENTRY_STEPS or not all(np.isfinite(r["total_loss"]) for r in steps):
+        raise AssertionError(f"entry metrics rows {steps}")
+    files = sorted(os.listdir(wdir))
+    need = {f"step{ENTRY_STEPS // 2:08d}.npz", f"step{ENTRY_STEPS:08d}.npz", "last_state.npz",
+            "best_model.npz", "metrics.jsonl"}
+    if not need <= set(files):
+        raise AssertionError(f"checkpoint files {files}, want {sorted(need)}")
+    if len(evals) != 1 or len(evals[0]["stats"]) != 12 or not all(
+            np.isfinite(v) and -1.0 <= v <= 1.0 for v in evals[0]["stats"]):
+        raise AssertionError(f"eval rows {evals}")
+    by_size = {}
+    for r in steps[1:]:   # the first step also pays for the run's first launches
+        by_size.setdefault(r["size"][0], []).append(1e3 * r["step_s"])
+    out.update(
+        steps=ENTRY_STEPS, run_s=run_s, launches=launches, eval_batches=n_eval_batches,
+        first_step_ms=1e3 * steps[0]["step_s"], first_step_size=steps[0]["size"][0],
+        step_ms_median_by_size={k: statistics.median(v) for k, v in sorted(by_size.items())},
+        steps_by_size={k: len(v) for k, v in sorted(by_size.items())},
+        step_ms_median=statistics.median(1e3 * r["step_s"] for r in steps[1:]),
+        losses_first=steps[0]["total_loss"], losses_last=steps[-1]["total_loss"],
+        files={f: (wdir / f).stat().st_size for f in files if f.endswith((".npz", ".jsonl"))},
+        map_stats=evals[0]["stats"], eval_s=evals[0]["eval_s"],
+        eval_img_per_s=ENTRY_VAL / evals[0]["eval_s"])
+    out.update(entry_steady(state, cfg, records))
+    k1_step = out["launches_per_step"]["dcn_fwd"]
+    out["launches_per_eval_batch"] = {
+        "dcn_fwd": (launches["dcn_fwd"] - k1_step * ENTRY_STEPS) / n_eval_batches,
+        "fused_stem": launches["fused_stem"] / n_eval_batches}
+    del state
+    torch.cuda.empty_cache()
+    out.update(entry_resume(data, root))
+    emit(out)
+    shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def entry_kernel_checks(cfg) -> dict:
+    """K1 and K2 against their plain versions on the card at every shape
+    the entry gives them, before its run (so outside its counts): K1 on
+    each training size's stage-5 grids (stride 2 on size/16, stride 1 on
+    size/32) at the training batch, K1 and K2 at the eval batch and size.
+    Any miss of the TOL bound raises."""
+    import torch
+    from ppyolo_tpu_torch.ops.deform_conv import deform_conv2d_plain
+    from ppyolo_tpu_torch.ops.deform_conv_cuda import dcn_fwd, pack_dcn_weight
+    from ppyolo_tpu_torch.ops.stem import fused_stem, fused_stem_plain
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(300)
+    n_train = cfg.train_cfg["batch_size"]
+    n_eval, s_eval = cfg.eval_cfg["eval_batch_size"], cfg.eval_cfg["target_size"]
+    grids = sorted({(n, s // div, stride)
+                    for n, sizes in ((n_train, cfg.randomShape["sizes"]), (n_eval, [s_eval]))
+                    for s in sizes for div, stride in ((16, 2), (32, 1))})
+    checks = []
+    for n, h, stride in grids:
+        x, w, om, _ = dcn_inputs(gen, n, 512, h, stride, dev)
+        got = dcn_fwd(x, om, pack_dcn_weight(w), None, ksize=(3, 3), stride=stride, padding=1)
+        want = deform_conv2d_plain(x, w, om, stride=stride, padding=1)
+        checks.append({"kernel": "dcn_fwd", "x": [n, h, h, 512], "stride": stride,
+                       **check_close(f"dcn_fwd {n}x{h}x{h}/s{stride}", got, want)})
+    x, ws, packed = stem_inputs(gen, n_eval, s_eval, dev)
+    got, want = fused_stem(x, *ws, packed=packed), fused_stem_plain(x, *ws)
+    checks.append({"kernel": "fused_stem", "x": [n_eval, s_eval, s_eval, 3],
+                   **check_close(f"fused_stem {n_eval}x{s_eval}", got, want)})
+    torch.cuda.synchronize()
+    return {"shapes": len(checks), "tol": TOL,
+            "worst_err_over_ref": max(c["max_abs_err"] / c["max_abs_ref"] for c in checks),
+            "checks": checks}
+
+
+def entry_steady(state, cfg, records) -> dict:
+    """STEADY_STEPS steps on the state the entry left, the entry's loop
+    (``step_loop``, the pinned prefetcher, one sync at the end) after one
+    warm step: once fed by the live loader (its worker threads beside the
+    stepping thread) and once on the same batches made beforehand; device
+    time by kernel class over the second (``torch.profiler``); K1, K2, K3
+    counted per step there.  Both see the same sizes: the stream is keyed
+    by the iteration."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from ppyolo_tpu_torch.data.loader import DevicePrefetcher, Prefetcher, train_batches
+    from ppyolo_tpu_torch.train.loop import step_loop
+    from ppyolo_tpu_torch.train.train_step import make_train_step
+
+    dev = next(state.model.parameters()).device
+    step_fn = make_train_step(state.model, cfg, compute_dtype=torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    start = state.step
+
+    def timed(batches):
+        """ms per step over the STEADY_STEPS after the warm one."""
+        nonlocal state
+        first, marks = state.step, []
+
+        def mark(st):   # after the warm step and after the last one
+            if st.step in (first + 1, first + 1 + STEADY_STEPS):
+                torch.cuda.synchronize()
+                marks.append(time.perf_counter())
+
+        state = step_loop(state, step_fn, DevicePrefetcher(batches, dev), gen,
+                          max_iters=first + 1 + STEADY_STEPS, log_every=0, after_step=mark)
+        return 1e3 * (marks[1] - marks[0]) / STEADY_STEPS
+
+    gen_b = train_batches(records, cfg, start_iter=start)
+    host = [next(gen_b) for _ in range(STEADY_STEPS + 1)]
+    gen_b.close()
+    live = Prefetcher(train_batches(records, cfg, start_iter=start), cfg.train_cfg["max_batch"])
+    try:
+        live_ms = timed(live)
+    finally:
+        live.close()
+    zero_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        preloaded_ms = timed(iter(host))
+    counts = read_counts()
+    total, top, by_class = device_time(prof, STEADY_STEPS + 1, 12)
+    host_ms, hot = step_host_profile(state, step_fn, host[0], gen)
+    per_step = {k: v / (STEADY_STEPS + 1) for k, v in counts.items()}
+    if per_step != {"dcn_fwd": 3, "dcn_bwd": 0, "fused_stem": 0, "conv_s2": 0}:
+        raise AssertionError(f"steady steps: launches {counts} in {STEADY_STEPS + 1} steps")
+    return {"steady_steps": STEADY_STEPS,
+            "steady_sizes": [b["shape"] for b in host[1:STEADY_STEPS + 1]],
+            "steady_ms_per_step_live_loader": live_ms,
+            "steady_ms_per_step_preloaded": preloaded_ms,
+            "steady_device_ms_per_step": total,
+            "steady_device_idle_share_live_loader": max(0.0, 1.0 - total / live_ms),
+            "steady_device_idle_share_preloaded": max(0.0, 1.0 - total / preloaded_ms),
+            "launches_per_step": per_step, "steady_by_class": by_class,
+            "steady_top": top[:8], "step_host_ms": host_ms, "step_host_hot_functions": hot}
+
+
+def step_host_profile(state, step_fn, host_batch, gen):
+    """The host side of one step: enqueue ms (the step returns before the
+    card finishes) and wait ms, medians of 3, then the hottest functions of
+    one more step under cProfile."""
+    import cProfile
+    import io
+    import pstats
+    import statistics
+
+    import torch
+    from ppyolo_tpu_torch.data.loader import host_to_device
+
+    dev = next(state.model.parameters()).device
+    batch = host_to_device(host_batch, dev)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step_fn(state, batch, gen)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        times.append((t1 - t0, time.perf_counter() - t1))
+    pr = cProfile.Profile()
+    pr.enable()
+    step_fn(state, batch, gen)
+    pr.disable()
+    torch.cuda.synchronize()
+    buf = io.StringIO()
+    pstats.Stats(pr, stream=buf).sort_stats("tottime").print_stats(12)
+    hot = [ln.strip() for ln in buf.getvalue().splitlines()
+           if ln.strip() and ln.strip()[0].isdigit()][:12]
+    enqueue, wait = (1e3 * statistics.median(c) for c in zip(*times))
+    return {"enqueue_ms": enqueue, "wait_ms": wait, "size": host_batch["shape"]}, hot
+
+
+def entry_resume(data: dict, root: Path) -> dict:
+    """RESUME_STEPS straight against RESUME_STEPS / 2, ``resume_state``,
+    and the rest, DropBlock off, cuDNN deterministic with autotuning off:
+    params, momentum buffers and EMA bitwise equal, or, if they are not,
+    no farther apart than two straight runs are."""
+    import torch
+    from ppyolo_tpu_torch.entry.train import run_training
+
+    def cfg_for(**train):
+        cfg = entry_config(data, root, **dict(dict(
+            max_iters=RESUME_STEPS, save_iter=10 ** 9, eval_iter=10 ** 9, log_iter=0), **train))
+        cfg.head = dict(cfg.head, drop_block=False)
+        return cfg
+
+    bench, det = torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic
+    torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = False, True
+    try:
+        straight = state_arrays(run_training(cfg_for(), weights_dir=str(root / "straight")))
+        wdir = root / "resumed"
+        run_training(cfg_for(max_iters=RESUME_STEPS // 2, save_iter=RESUME_STEPS // 2),
+                     weights_dir=str(wdir))
+        resumed = state_arrays(run_training(
+            cfg_for(resume_state=str(wdir / "last_state.npz")), weights_dir=str(wdir)))
+        diff = state_diff(resumed, straight)
+        out = {"resume_steps": f"{RESUME_STEPS // 2}+{RESUME_STEPS // 2} vs {RESUME_STEPS}",
+               "resume_bitwise": diff["leaves_differ"] == 0, "resume_vs_straight": diff}
+        if diff["leaves_differ"]:
+            again = state_arrays(run_training(cfg_for(), weights_dir=str(root / "again")))
+            spread = state_diff(again, straight)
+            out["straight_vs_straight"] = spread
+            if not diff["rel_l2"] <= 2.0 * spread["rel_l2"]:
+                raise AssertionError(f"resumed run {diff} beyond twice the run-to-run "
+                                     f"spread {spread}")
+    finally:
+        torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = bench, det
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -904,6 +1266,8 @@ def main() -> int:
         del state
         torch.cuda.empty_cache()
         phase_train_check()
+        torch.cuda.empty_cache()
+        counts["entry"] = phase_entry(smi)
     except Exception as e:  # report and fail: no result line
         import traceback
 

@@ -2,12 +2,15 @@
 Matrix-NMS on the device with one [B, keep_top_k, 6] copy back.
 
 Counterpart of ``ppyolo_tpu/eval/detector.py::Detector``.  Images travel to
-the device as uint8 NHWC and are normalized there; the NHWC batch viewed as
-NCHW is ``channels_last``, so no layout copy happens.  Runs eagerly.
+the device as uint8 NHWC, staged through pinned memory, and are
+normalized there; the NHWC batch viewed as NCHW is ``channels_last``, so no
+layout copy happens.  Runs eagerly.  The Detector casts, re-lays and
+BN-folds the model it is given, so it needs a model of its own (never the
+one being trained): ``set_params`` loads new weights into it.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -23,10 +26,10 @@ class Detector:
         ``device`` defaults to ``cuda`` and raises if there is no card."""
         self.device = resolve_device(device)
         self.compute_dtype = COMPUTE_DTYPES[precision]
-        sd = optimize_for_inference(state_dict, precision=precision, fold_bn=fold_bn)
+        self._precision, self._fold_bn = precision, fold_bn
         self.model = model.to(device=self.device, dtype=self.compute_dtype,
                               memory_format=torch.channels_last).eval()
-        self.model.load_state_dict(sd)
+        self.set_params(state_dict)
         self.target_size = int(target_size or cfg.test_cfg["target_size"])
         mean = np.array(cfg.normalizeImage["mean"], np.float32)
         std = np.array(cfg.normalizeImage["std"], np.float32)
@@ -38,6 +41,13 @@ class Detector:
             mean, std = mean[::-1].copy(), std[::-1].copy()
         self.mean = torch.from_numpy(mean).to(self.device).view(1, 3, 1, 1)
         self.std = torch.from_numpy(std).to(self.device).view(1, 3, 1, 1)
+
+    def set_params(self, state_dict) -> None:
+        """Load new weights (the port's keys, fp32, any device), BN folded
+        and cast as at construction; the model and its caches stay."""
+        sd = optimize_for_inference(state_dict, precision=self._precision,
+                                    fold_bn=self._fold_bn)
+        self.model.load_state_dict(sd)
 
     def process_image(self, img_bgr: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         """BGR->RGB + uint8 cv2 resize on the host (reference decode_np.py:125-140)."""
@@ -66,8 +76,30 @@ class Detector:
     def predict_batch(self, pimages: np.ndarray, im_sizes: np.ndarray) -> np.ndarray:
         """pimages [B,S,S,3] preprocessed; im_sizes [B,2] (h, w).
         Returns [B, keep_top_k, 6] numpy (label, score, x0, y0, x1, y1)."""
-        images = torch.from_numpy(np.ascontiguousarray(pimages)).to(
-            self.device, non_blocking=True)
+        images = torch.from_numpy(np.ascontiguousarray(pimages))
+        if self.device.type == "cuda":
+            images = images.pin_memory()   # so the copy below is asynchronous
+        images = images.to(self.device, non_blocking=True)
         sizes = torch.from_numpy(np.asarray(im_sizes, np.float32)).to(self.device)
         out = self.model.predict(self.normalize(images), sizes)
         return out.cpu().numpy()
+
+    def detect_image(self, img_bgr: np.ndarray, draw_thresh: Optional[float] = None):
+        """One BGR image -> (boxes [K,4] xyxy, scores [K], classes [K])
+        (reference decode_np.py:41-96)."""
+        pimage, im_size = self.process_image(img_bgr)
+        pred = self.predict_batch(pimage, im_size)[0]
+        keep = pred[:, 0] >= 0
+        if draw_thresh is not None:
+            keep &= pred[:, 1] >= draw_thresh
+        return pred[keep, 2:6], pred[keep, 1], pred[keep, 0].astype(np.int32)
+
+    def detect_batch(self, imgs_bgr: List[np.ndarray]):
+        """BGR images -> one (boxes, scores, classes) per image."""
+        pimages, sizes = zip(*(self.process_image(im) for im in imgs_bgr))
+        preds = self.predict_batch(np.concatenate(pimages), np.concatenate(sizes))
+        results = []
+        for pred in preds:
+            keep = pred[:, 0] >= 0
+            results.append((pred[keep, 2:6], pred[keep, 1], pred[keep, 0].astype(np.int32)))
+        return results

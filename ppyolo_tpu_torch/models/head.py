@@ -9,7 +9,10 @@ param tree (``detection_blocks.0.layers.1.conv.weight``).  Every concat is
 materialized with ``torch.cat``; the JAX package's virtual concat
 (``HEAD_DECOMPOSE``) is a TPU layout optimisation not ported yet.
 DropBlock runs in training only (``head.py:143-147``), drawing from the
-generator handed to ``get_outputs``.
+generator handed to ``get_outputs``.  The decode's anchors are a
+non-persistent integer buffer (pixel sizes, exact under the serving
+model's bf16 cast), so they move with the model and the predict makes no
+host-to-device copy.
 """
 from __future__ import annotations
 
@@ -98,8 +101,14 @@ class YOLOv3Head(nn.Module):
                  in_channels=(2048, 1024, 512), nms_cfg=None, **_unused):
         super().__init__()
         self.num_classes = num_classes
-        self.anchors = np.asarray(anchors, np.float32)
         self.anchor_masks = [list(m) for m in anchor_masks]
+        mask_wh = np.asarray([anchors[a] for m in anchor_masks for a in m], np.float64)
+        if not np.array_equal(mask_wh, np.round(mask_wh)):
+            raise ValueError(f"anchors must be integral pixel sizes, got {anchors}")
+        # level i's anchors are rows [start, start + len(mask)) in mask order
+        self.register_buffer("mask_anchors_wh", torch.from_numpy(mask_wh.astype(np.int32)),
+                             persistent=False)
+        self._mask_rows = np.cumsum([0] + [len(m) for m in anchor_masks]).tolist()
         self.mask_anchors = [[float(v) for a in m for v in anchors[a]]
                              for m in anchor_masks]
         self.iou_aware = iou_aware
@@ -152,8 +161,9 @@ class YOLOv3Head(nn.Module):
         """Decode + IoU-aware fuse + batched Matrix-NMS -> [B, keep_top_k, 6]."""
         boxes, scores = [], []
         for i, out in enumerate(self.get_outputs(body_feats)):
+            lo, hi = self._mask_rows[i], self._mask_rows[i + 1]
             b, s = yolo_box_serving(
-                out, torch.from_numpy(self.anchors[self.anchor_masks[i]]),
+                out, self.mask_anchors_wh[lo:hi],
                 self.downsample[i], self.num_classes, self.scale_x_y, im_size,
                 self.clip_bbox,
                 iou_aware_factor=self.iou_aware_factor if self.iou_aware else None)

@@ -44,7 +44,8 @@ def yolo_box_serving(output: torch.Tensor, anchors: torch.Tensor, stride: int,
                      num_classes: int, scale_x_y: float, im_size: torch.Tensor,
                      clip_bbox: bool, *, iou_aware_factor: Optional[float] = None):
     """Decode one level.  output [N, an*(6+C) or an*(5+C), S, S] raw head map
-    (NCHW); anchors [an, 2] (w, h).  Returns (boxes [N, S*S*an, 4] fp32 xyxy
+    (NCHW); anchors [an, 2] (w, h), any dtype, on the map's device (cast to
+    fp32 there).  Returns (boxes [N, S*S*an, 4] fp32 xyxy
     in original-image pixels, scores [N, S*S*an, C] in the map's dtype)."""
     out = output.permute(0, 2, 3, 1)                    # NHWC view
     n, s, s2, _ = out.shape

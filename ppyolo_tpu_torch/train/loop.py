@@ -1,12 +1,15 @@
 """The training loop of the port: the inner loop of ``train.py:265-293``.
 
-The caller supplies the host batches (an iterator of dicts of numpy
-arrays: 'image' uint8 NHWC, 'gt_bbox', 'gt_class', 'gt_score' or
-'targets'), which is where a COCO loader plugs in.  Each batch is copied to
-the device, stepped, and every ``train_cfg['log_iter']`` steps the losses
-and img/s are logged (and handed to ``log_fn``, where the JAX loop appends
-them to metrics.jsonl).  At the end the EMA shadow is applied to a copy of
-the state dict, the parameters one would evaluate or save.
+``step_loop`` is the one stepping loop: it takes device batches (from a
+``data.loader.DevicePrefetcher``, whose copy of batch N+1 runs beside
+step N's kernels), steps, and every ``train_cfg['log_iter']`` steps reads the losses
+(a sync with the card) and hands them to ``on_log`` with the window's
+seconds per step.  ``after_step`` runs after every step (the entry's
+checkpoints and evals); its time is kept out of the next window.
+
+``run_training`` drives it on batches the caller supplies (an iterator of
+dicts of numpy arrays: 'image' uint8 NHWC, 'gt_bbox', 'gt_class',
+'gt_score' or 'targets'); ``entry/train.py`` drives it on the COCO loader.
 """
 from __future__ import annotations
 
@@ -14,9 +17,9 @@ import logging
 import time
 from typing import Callable, Dict, Iterable, Optional, Tuple
 
-import numpy as np
 import torch
 
+from ..data.loader import DevicePrefetcher
 from ..models import PPYOLO
 from ..ops.ema import ema_apply
 from ..ops.module import resolve_device
@@ -24,30 +27,58 @@ from .train_step import TrainState, init_train_state, make_train_step
 
 logger = logging.getLogger(__name__)
 
-BATCH_KEYS = ("image", "gt_bbox", "gt_class", "gt_score", "targets")
 PRECISIONS = {"fp32": torch.float32, "bf16": torch.bfloat16}
 
 
-def to_device_batch(batch: Dict, device: torch.device) -> Dict:
-    """H2D copy of the keys the step reads ('targets' is a sequence)."""
-    def put(v):
-        return torch.from_numpy(np.ascontiguousarray(v)).to(device, non_blocking=True)
-
-    return {k: (tuple(put(t) for t in batch[k]) if k == "targets" else put(batch[k]))
-            for k in BATCH_KEYS if k in batch}
+def step_loop(state: TrainState, step_fn, batches: Iterable[Tuple[Dict, Dict]],
+              generator: torch.Generator, *, max_iters: int, log_every: int,
+              on_log: Optional[Callable[[int, Dict[str, float], Dict], None]] = None,
+              after_step: Optional[Callable[[TrainState], None]] = None) -> TrainState:
+    """Step on ``(device_batch, host_batch)`` pairs until ``state.step``
+    reaches ``max_iters`` or the batches run out; a batch is asked for only
+    when a step will take it.  ``on_log(step, losses,
+    info)`` gets each logged record; ``info`` holds the batch's ``size``
+    [H, W], ``step_s`` (the mean wall time of a step since the last log)
+    and ``imgs_per_sec``."""
+    t0, n_steps = time.time(), 0
+    batches = iter(batches)
+    while state.step < max_iters:
+        item = next(batches, None)
+        if item is None:
+            break
+        batch = item[0]
+        state, losses = step_fn(state, batch, generator)
+        n_steps += 1
+        if log_every > 0 and state.step % log_every == 0:
+            vals = {k: float(v) for k, v in losses.items()}   # syncs with the card
+            step_s = (time.time() - t0) / n_steps
+            n, h, w = batch["image"].shape[:3]
+            info = {"size": [int(h), int(w)], "step_s": step_s, "imgs_per_sec": n / step_s}
+            msg = ", ".join(f"{k}={v:.3f}" for k, v in vals.items())
+            logger.info("iter %d, %s, %.1f imgs/s", state.step, msg, info["imgs_per_sec"])
+            if on_log is not None:
+                on_log(state.step, vals, info)
+            t0, n_steps = time.time(), 0
+        if after_step is not None:
+            ta = time.time()
+            after_step(state)
+            t0 += time.time() - ta
+    return state
 
 
 def run_training(cfg, batches: Iterable[Dict], *, device=None,
                  max_iters: Optional[int] = None,
                  model: Optional[PPYOLO] = None, seed: int = 0,
                  log_fn: Optional[Callable[[int, Dict[str, float]], None]] = None,
+                 after_step: Optional[Callable[[TrainState], None]] = None,
                  ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """Train ``model`` (default: ``cfg``'s model, random init from ``seed``)
     on ``batches`` for ``max_iters`` steps (default ``train_cfg
     ['max_iters']``) or until the batches run out.  ``device`` defaults to
     CUDA and raises without a card; precision is ``train_cfg['precision']``
     (fp32 or bf16 mixed).  ``log_fn(step, losses)`` receives each logged
-    record.  Returns the state and the EMA-applied state dict."""
+    record; ``after_step(state)`` runs after every step.  Returns the state
+    and the EMA-applied state dict."""
     dev = resolve_device(device)
     tc = cfg.train_cfg
     if model is None:
@@ -57,22 +88,11 @@ def run_training(cfg, batches: Iterable[Dict], *, device=None,
     step_fn = make_train_step(model, cfg,
                               compute_dtype=PRECISIONS[tc.get("precision", "fp32")])
     generator = torch.Generator(device=dev).manual_seed(seed + 1)
-    max_iters = int(tc["max_iters"] if max_iters is None else max_iters)
-    log_every = int(tc.get("log_iter", 20))
-    t0 = time.time()
-    for batch in batches:
-        if state.step >= max_iters:
-            break
-        n_img = batch["image"].shape[0]
-        state, losses = step_fn(state, to_device_batch(batch, dev), generator)
-        if log_every > 0 and state.step % log_every == 0:
-            vals = {k: float(v) for k, v in losses.items()}   # syncs with the card
-            dt = time.time() - t0
-            msg = ", ".join(f"{k}={v:.3f}" for k, v in vals.items())
-            logger.info("iter %d, %s, %.1f imgs/s", state.step, msg,
-                        n_img * log_every / dt)
-            if log_fn is not None:
-                log_fn(state.step, vals)
-            t0 = time.time()
+    state = step_loop(
+        state, step_fn, DevicePrefetcher(batches, dev), generator,
+        max_iters=int(tc["max_iters"] if max_iters is None else max_iters),
+        log_every=int(tc.get("log_iter", 20)),
+        on_log=None if log_fn is None else (lambda step, vals, _: log_fn(step, vals)),
+        after_step=after_step)
     sd = model.state_dict()
     return state, (ema_apply(sd, state.ema) if state.ema is not None else dict(sd))

@@ -5,6 +5,8 @@ skips without one.  Imports torch and numpy only (no JAX), so it runs on the
 GPU machine: ``python -m pytest tests/test_torch_port_gpu.py -m gpu``.
 Tolerance: max-abs error <= 2% of the plain output's max-abs (bf16 operands).
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -290,3 +292,138 @@ def test_conv_s2_kernel_layout_grad_and_channel_checks():
     xc, wc = _conv_s2_inputs(8, 1, 8, 12, 16, torch.bfloat16, dev)
     with pytest.raises(ValueError, match="C % 8 == 0"):
         conv_s2(xc, wc)
+
+
+# ---------------------------------------------------------------- the entry slice
+
+def _host_batch(seed, n=2, size=96):
+    r = np.random.RandomState(seed)
+    return {"image": r.randint(0, 256, (n, size, size, 3)).astype(np.uint8),
+            "gt_bbox": r.rand(n, 50, 4).astype(np.float32),
+            "gt_class": r.randint(0, 80, (n, 50)).astype(np.int32),
+            "gt_score": r.rand(n, 50).astype(np.float32), "shape": size,
+            "targets": (r.rand(n, 3, 3, 3, 86).astype(np.float32),)}
+
+
+@pytest.mark.gpu
+def test_pinned_prefetcher_batches_equal_a_plain_copy():
+    """Each device batch of the side-stream pinned prefetcher equals a
+    plain ``.to(device)`` of its host batch, bit for bit, while the current
+    stream runs work between the hand-overs."""
+    from ppyolo_tpu_torch.data.loader import DevicePrefetcher
+
+    dev = _cuda_or_skip()
+    host = [_host_batch(i) for i in range(4)]
+    n = 0
+    for (got, h), want in zip(DevicePrefetcher(iter(host), dev), host):
+        assert h is want
+        busy = torch.randn(2048, 2048, device=dev)
+        busy = busy @ busy   # work on the current stream while the next copy runs
+        for k in ("image", "gt_bbox", "gt_class", "gt_score"):
+            assert got[k].device.type == "cuda"
+            assert torch.equal(got[k], torch.from_numpy(want[k]).to(dev)), k
+        assert torch.equal(got["targets"][0], torch.from_numpy(want["targets"][0]).to(dev))
+        n += 1
+    assert n == 4
+
+
+def _predict_as_before(det, cfg, pimages, sizes):
+    """``Detector.predict_batch`` as it ran before the anchors became a
+    device buffer and the batch went through pinned memory: a pageable
+    upload and per-level float anchors from the host."""
+    from ppyolo_tpu_torch.ops.matrix_nms import matrix_nms
+    from ppyolo_tpu_torch.ops.yolo_box import yolo_box_serving
+
+    head = det.model.head
+    anchors = np.asarray(cfg.head["anchors"], np.float32)
+    with torch.no_grad():
+        x = det.normalize(torch.from_numpy(pimages).to(det.device))
+        s = torch.from_numpy(sizes).to(det.device)
+        boxes, scores = [], []
+        for i, out in enumerate(head.get_outputs(det.model.backbone(x))):
+            b, sc = yolo_box_serving(
+                out, torch.from_numpy(anchors[head.anchor_masks[i]]), head.downsample[i],
+                head.num_classes, head.scale_x_y, s, head.clip_bbox,
+                iou_aware_factor=head.iou_aware_factor if head.iou_aware else None)
+            boxes.append(b)
+            scores.append(sc)
+        return matrix_nms(boxes, scores, head.nms_cfg).cpu().numpy()
+
+
+@pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.gpu)])
+def test_detector_predict_batch_equals_the_route_before_the_repairs(device):
+    """Detections bit-equal to the earlier route, on two batches in a row,
+    and no anchor leaves the model's state dict."""
+    from configs import PPYOLO_2x_Config
+    from ppyolo_tpu_torch.eval.detector import Detector
+    from ppyolo_tpu_torch.models import PPYOLO
+
+    dev = _cuda_or_skip() if device == "cuda" else torch.device("cpu")
+    cfg = PPYOLO_2x_Config()
+    model = PPYOLO.from_config(cfg).init_parameters(torch.Generator().manual_seed(0))
+    assert not any("anchor" in k for k in model.state_dict())
+    det = Detector(model, model.state_dict(), cfg, precision="bf16" if device == "cuda" else "fp32",
+                   device=dev)
+    assert det.model.head.mask_anchors_wh.dtype == torch.int32
+    assert det.model.head.mask_anchors_wh.device.type == dev.type
+    sizes = np.array([[480, 640], [96, 96]], np.float32)
+    for seed in (1, 2):
+        pimages = np.random.RandomState(seed).randint(0, 256, (2, 96, 96, 3)).astype(np.uint8)
+        got = det.predict_batch(pimages, sizes)
+        want = _predict_as_before(det, cfg, pimages, sizes)
+        assert got.shape == (2, 100, 6) and (got[..., 0] >= 0).any()
+        np.testing.assert_array_equal(got, want)
+
+
+def _mini2x_cfg():
+    """ppyolo_2x's feature set at ResNet18-vd depth, 2 classes (the CPU
+    tests' ``mini2x_cfg``, restated here without JAX)."""
+    from configs import PPYOLO_2x_Config
+
+    cfg = PPYOLO_2x_Config()
+    cfg.num_classes = 2
+    cfg.backbone_type = "Resnet18Vd"
+    cfg.backbone = dict(norm_type="bn", feature_maps=[3, 4, 5], dcn_v2_stages=[5],
+                        freeze_at=0, freeze_norm=False, norm_decay=0.0)
+    cfg.head = dict(cfg.head, num_classes=2, in_channels=[512, 256, 128])
+    cfg.gt2YoloTarget = dict(cfg.gt2YoloTarget, num_classes=2)
+    return cfg
+
+
+@pytest.mark.gpu
+def test_entry_two_steps_on_the_card_with_launch_counts(tmp_path):
+    """Two bf16 steps of the training entry at 96 px on a synthetic COCO
+    set, a checkpoint and an eval at step 2: every DCN launches K1 and K3
+    once a step, and K1 once and K2 once an eval batch."""
+    import json
+
+    from ppyolo_tpu_torch.data.synthetic import make_synthetic_coco
+    from ppyolo_tpu_torch.entry.train import run_training
+    from ppyolo_tpu_torch.models import PPYOLO
+    from ppyolo_tpu_torch.ops.conv import ConvNormAct
+    from ppyolo_tpu_torch.ops.deform_conv_cuda import dcn_bwd, dcn_fwd
+    from ppyolo_tpu_torch.ops.stem import fused_stem
+
+    _cuda_or_skip()
+    anno, img_dir = make_synthetic_coco(str(tmp_path / "coco"), 4, 2, np.random.RandomState(0),
+                                        image_sizes=((96, 128), (128, 96)), box_range=(20, 48))
+    cfg = _mini2x_cfg()
+    cfg.train_path = cfg.val_path = anno
+    cfg.train_pre_path = cfg.val_pre_path = img_dir
+    cfg.randomShape = dict(sizes=[96], random_inter=True)
+    cfg.train_cfg = dict(cfg.train_cfg, batch_size=2, max_iters=2, save_iter=2, eval_iter=2,
+                         log_iter=1, precision="bf16", model_path=str(tmp_path / "missing.npz"))
+    cfg.eval_cfg = dict(cfg.eval_cfg, target_size=96, eval_batch_size=2)
+    n_dcn = sum(m.use_dcn for m in PPYOLO.from_config(cfg).modules() if isinstance(m, ConvNormAct))
+    assert n_dcn > 0
+    counts = (dcn_fwd.launches, dcn_bwd.launches, fused_stem.launches)
+    state = run_training(cfg, weights_dir=str(tmp_path / "w"))
+    torch.cuda.synchronize()
+    got = (dcn_fwd.launches - counts[0], dcn_bwd.launches - counts[1],
+           fused_stem.launches - counts[2])
+    assert state.step == 2
+    assert got == (2 * n_dcn + 2 * n_dcn, 2 * n_dcn, 2)   # 2 steps, 2 eval batches
+    rows = [json.loads(line) for line in open(tmp_path / "w" / "metrics.jsonl")]
+    assert [r["iter"] for r in rows if "total_loss" in r] == [1, 2]
+    assert all(np.isfinite(r["total_loss"]) for r in rows if "total_loss" in r)
+    assert os.path.exists(tmp_path / "w" / "last_state.npz")
