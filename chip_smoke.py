@@ -38,28 +38,53 @@ Phases, one JSON line each; any failure exits non-zero:
                launched, no other kernel; no variant failed.
 5. serving  -- ppyolo_2x at full width (random weights from a seed) through
                the port's ``Detector``: BN folded, bf16, batch 8 at 608x608,
-               decode and Matrix-NMS on the card.  The launch counters are
-               zeroed just before and read just after; the kernels must have
-               run 3 (DCN) and 1 (stem) times per batch, K3 and K4 never.
+               decode and Matrix-NMS on the card, each batch one replay of
+               a CUDA graph captured at the first batch.  The launch
+               counters are zeroed just before and read just after: K1 3
+               and K2 1 launches per batch, the graph's eager warm-up run
+               and every replay counted (a graph adds the calls it recorded
+               at capture to the counts at each replay), K3 and K4 never;
+               one graph's calls recorded (``captured``).
                Outputs must be finite [8,100,6], and the card's bf16 head
                maps must agree with the CPU path (the kernels' plain
                versions) on a small input.  Times 5 windows of 40 batches
                after 2 warm-up batches and prints img/s (all windows, and
                each window's for the spread) beside the card's name and
                power limit.
-6. profile  -- device time by kernel (torch.profiler) over 3 more batches,
-               the device's idle share, and the host's share of a batch.
+6. profile  -- device time by kernel (torch.profiler) over 3 more graphed
+               batches, K1 3 and K2 1 per batch counted from the kernel
+               names in the trace and equal to the counters over the same
+               batches, the device's idle share, and the host's share of
+               an eager batch.
+6b. graphs_serving -- the graphed ``predict_batch`` bit-equal to the eager
+               forward on a b8@608 batch, again after ``set_params`` with
+               other weights, and ``predict_pipelined(group=4)`` bit-equal
+               to 4 ``predict_batch``; img/s, the host's enqueue ms per
+               batch, device ms and idle share of eager, graphed and
+               pipelined serving, K1 and K2 per batch from each trace (and
+               the counters equal to each trace's).
 7. training -- ppyolo_2x at full width and depth with ``freeze_at=0``
                (every stage trains, so the DCN backward runs), bf16 mixed
                precision, EMA and DropBlock on, batch 8 at 608x608 on
                seeded synthetic uint8 batches whose targets are built on the
-               card, through the port's ``run_training``: 2 warm-up steps,
-               then 3 timed windows of 10 steps.  Counters zeroed before and
-               read after: K1 and K3 3 times a step, K2 and K4 never
-               (training runs the unfused stem).  Logged losses finite,
-               every trainable leaf moved, the EMA-applied state finite.
-8. train_profile -- device time by kernel per step over 3 more steps and the
-               device's idle share.
+               card, through the port's ``run_training`` (each step a CUDA
+               graph replay): 2 warm-up steps, then 3 timed windows of 10
+               steps.  Counters zeroed before and read after: K1 and K3 3
+               launches each per step, the warm-up run's and every
+               replay's, K2 and K4 never (training runs the unfused stem).  Logged losses
+               finite, every trainable leaf moved, the EMA-applied state
+               finite.
+8. train_profile -- device time by kernel per graphed step over 3 more
+               steps, K1 3 and K3 3 per step from the trace (the counters
+               equal to it), and the device's idle share.
+8b. graphs_training -- the same fine-tuning, cuDNN deterministic: 4 graphed
+               steps against 4 eager steps from the same state and
+               generator (losses, params, BN statistics, momentum, EMA,
+               step and generator bitwise), ``make_multi_train_step`` with
+               4 steps in each target pipeline bitwise equal to each other
+               and to the 4 one-step replays; ms/step, enqueue ms, idle
+               share of eager, one-step and 4-step replays, capture
+               seconds and peak memory.
 9. train_check -- one fp32 step (TF32 off) on the card against the same step
                on the CPU path (the kernels' plain versions) at 128x128,
                batch 2, DropBlock off: losses and stage 5's gradients.
@@ -68,7 +93,9 @@ Phases, one JSON line each; any failure exits non-zero:
                (``ppyolo_tpu_torch.entry.train.run_training``) on full
                ppyolo_2x as its recipe sets it (``freeze_at=5``, bf16, EMA,
                DropBlock, mixup, 5 loader threads, the 10 sizes from 320 to
-               608, batch 8) over a synthetic COCO set (ENTRY_TRAIN train
+               608, batch 8) with ``--scan_steps 4`` and ``warmup_shapes``
+               (every size's 4-step graph captured before the loop, seconds
+               each) over a synthetic COCO set (ENTRY_TRAIN train
                and ENTRY_VAL val jpgs at COCO-like sizes, 80 classes).
                First K1 and K2 are held against their plain versions (TOL)
                at every shape the entry gives them: K1 on the stage-5 grids
@@ -76,14 +103,20 @@ Phases, one JSON line each; any failure exits non-zero:
                size/32) at batch 8, K1 and K2 at the eval's batch 4 at 608.
                Then ENTRY_STEPS steps, a checkpoint at the midpoint and a COCO
                eval at the end at 608, batch 4.  Counters zeroed before and
-               read after: K1 3 a step and 3 an eval batch, K2 1 an eval
-               batch, K3 and K4 never.  Prints the loader's own img/s (the
+               read after: K1 3 a step and K1 3 and K2 1 an eval batch, over
+               the steps, the eval batches and the eager warm-up run before
+               each of the 11 captures, K3 and K4 never.
+               The eval of the final params with ``scan_group`` 2 equals
+               ``scan_group`` 1 (stats and detections), K1 3 and K2 1 an
+               eval batch in its trace.  Prints the loader's own img/s (the
                recipe's 5 threads), step ms by input size, the files
                written, the 12 mAP stats (finite, in [-1, 1]) and eval
                img/s; STEADY_STEPS more steps on the state it left (one sync
-               at the end), fed by the live loader and by the same batches
-               made beforehand, with device time by kernel class and the
-               idle share of each; and the resume check:
+               at the end, units of 4 as graph replays), fed by the live
+               loader and by the same batches made beforehand, with device
+               time by kernel class, K1 per step from the trace, the idle
+               share of each, and the host's enqueue of a graphed unit and
+               of an eager step; and the resume check (units of 4):
                RESUME_STEPS straight against half, ``resume_state`` and the
                rest (DropBlock off, cuDNN deterministic), bitwise or within
                twice the spread of two straight runs.
@@ -108,8 +141,11 @@ TOL = 0.02                   # max-abs error / max-abs of the plain output
 DISTINCT_SETS = 8            # input sets rotated through for the L2-cold kernel times
 BATCH, SIZE = 8, 608
 WARMUP_BATCHES = 2
+GROUP = 4                         # batches a predict_pipelined replay serves
+SERVE_MODE_BATCHES = 40           # batches timed per serving mode
 WINDOWS, WINDOW_BATCHES = 5, 40   # timed serving: 200 batches, a few seconds
 TRAIN_WARMUP, TRAIN_WINDOWS, TRAIN_WINDOW_STEPS = 2, 3, 10
+GRAPH_STEPS, GRAPH_TIMED_UNITS = 4, 3   # graphed vs eager fine-tuning steps
 CHECK_SIZE, CHECK_BATCH = 128, 2  # card-vs-CPU training step
 # stage 5 alone, card vs the CPU run that rounds as the kernels do: the
 # card read 0.038 and 0.045 at 128 and 256 px, while the unrounded CPU path
@@ -119,6 +155,8 @@ STAGE5_TOL = 0.1
 PROBE_ARGS = ["--batch", str(BATCH), "--scan", "8", "--disp", "2", "--dtype", "bf16"]
 ENTRY_TRAIN, ENTRY_VAL = 64, 16  # synthetic COCO images of the entry phase
 ENTRY_STEPS, ENTRY_EVAL_BATCH = 16, 4
+ENTRY_SCAN = 4                   # the recipe's --scan_steps in the entry phase
+ENTRY_SCAN_GROUP = 2             # the eval's scan_group, held against 1
 LOADER_BATCHES = 8               # the loader alone, after one warm batch
 STEADY_STEPS = 8                 # steady steps after the entry's run
 RESUME_STEPS = 16                # the resume check: 8 + 8 against 16
@@ -161,7 +199,9 @@ def bound_ms(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS):
 
 
 def wrappers() -> dict:
-    """Each kernel's launch wrapper, whose ``launches`` counts its launches."""
+    """Each kernel's launch wrapper: ``launches`` counts its kernel's
+    launches (a CUDA graph adds the calls it recorded at each replay),
+    ``captured`` the calls recorded into graphs."""
     from ppyolo_tpu_torch.ops.deform_conv_cuda import dcn_bwd, dcn_fwd
     from ppyolo_tpu_torch.ops.stem import fused_stem
     from ppyolo_tpu_torch.ops.strided_conv import conv_s2
@@ -172,11 +212,36 @@ def wrappers() -> dict:
 
 def zero_counts() -> None:
     for fn in wrappers().values():
-        fn.launches = 0
+        fn.launches = fn.captured = 0
 
 
 def read_counts() -> dict:
     return {k: fn.launches for k, fn in wrappers().items()}
+
+
+def read_captured() -> dict:
+    return {k: fn.captured for k, fn in wrappers().items()}
+
+
+def expect(per_unit: dict, units: int) -> dict:
+    """Every wrapper's count for ``units`` units that launch ``per_unit``."""
+    return {k: per_unit.get(k, 0) * units for k in wrappers()}
+
+
+def warmup_iters() -> int:
+    """The eager runs before each capture (they launch; the capture does not)."""
+    from ppyolo_tpu_torch.train.graphs import WARMUP_ITERS
+
+    return WARMUP_ITERS
+
+
+def check_counts_in_trace(prof, where: str) -> dict:
+    """The wrappers' counts since ``zero_counts`` against the launches of
+    each kernel in the trace ``prof`` of the same calls."""
+    counted, traced = read_counts(), kernel_launches(prof, 1)
+    if counted != traced:
+        raise AssertionError(f"{where}: counted launches {counted}, the trace has {traced}")
+    return counted
 
 
 def check_close(name: str, got, want) -> dict:
@@ -404,7 +469,7 @@ def kernel_k4(gen, dev) -> dict:
         shapes=shapes, **k4)
 
 
-def phase_probe() -> dict:
+def phase_probe() -> tuple:
     """The probe's entry point at b8 bf16, short scan; the counts zeroed
     just before and read just after."""
     from ppyolo_tpu_torch.tools import probe_strided_conv
@@ -417,7 +482,7 @@ def phase_probe() -> dict:
         raise AssertionError(f"probe variants failed: {summary['failed']}")
     if launches["conv_s2"] == 0 or any(v for k, v in launches.items() if k != "conv_s2"):
         raise AssertionError(f"probe launch counts {launches}: K4 and only K4 must launch")
-    return launches
+    return launches, read_captured()
 
 
 def kernel_k3(gen, dev) -> dict:
@@ -582,10 +647,14 @@ def phase_serving(smi: str):
             lat.append(time.perf_counter() - t)
         window_ips.append(BATCH * WINDOW_BATCHES / (time.perf_counter() - tw))
     n_batches = WARMUP_BATCHES + WINDOWS * WINDOW_BATCHES
-    launches = read_counts()
-    if launches != {"dcn_fwd": 3 * n_batches, "dcn_bwd": 0, "fused_stem": n_batches,
-                    "conv_s2": 0}:
-        raise AssertionError(f"launch counts {launches} for {n_batches} batches")
+    launches, captured = read_counts(), read_captured()
+    # one CUDA graph (b8@608), captured at the first batch after its eager
+    # warm-up run; every batch is a replay
+    per_batch = {"dcn_fwd": 3, "fused_stem": 1}
+    if (launches != expect(per_batch, n_batches + warmup_iters())
+            or captured != expect(per_batch, 1)):
+        raise AssertionError(f"launch counts {launches}, captured {captured}: want "
+                             f"{per_batch} per batch and one captured graph")
     ips = BATCH * len(lat) / sum(lat)
     kept = int((out[..., 0] >= 0).sum())
 
@@ -615,27 +684,45 @@ def phase_serving(smi: str):
               "batch_ms_median": 1e3 * float(np.median(lat)),
               "batch_ms_p90": 1e3 * float(np.percentile(lat, 90)),
               "batch_ms_min": 1e3 * min(lat), "setup_s": setup_s,
-              "launches": launches, "kept_detections_last_batch": kept,
+              "launches": launches, "captured": captured,
+              "kept_detections_last_batch": kept,
               "card_vs_cpu_rel_l2": rel, "nvidia_smi": smi,
               "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
     emit(result)
-    return det, images[0], sizes, result["batch_ms_median"], launches
+    return det, sd, images[0], sizes, result["batch_ms_median"], (launches, captured)
+
+
+def kernel_launches(prof, units: int) -> dict:
+    """Launches of each port kernel per unit, counted from the profiler's
+    kernel names (inside CUDA graph replays too)."""
+    names = {"dcn_fwd": ("dcn_fwd_kernel",), "dcn_bwd": ("dcn_bwd_kernel",),
+             "fused_stem": ("fused_stem_kernel",), "conv_s2": ("conv_s2_",)}
+    ev = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    return {k: sum(e.count for e in ev if any(n in e.key for n in keys)) / units
+            for k, keys in names.items()}
 
 
 def phase_profile(det, images, sizes, batch_ms):
-    """Device time by kernel over 3 steady batches (torch.profiler, CUDA
-    activity only).  The idle share is taken against the unprofiled median
-    batch time: the profiler's own host cost would inflate a profiled one."""
+    """Device time by kernel over 3 steady graphed batches (torch.profiler,
+    CUDA activity only), and each kernel's launches per batch read from its
+    name in the trace.  The idle share is taken against the unprofiled
+    median batch time: the profiler's own host cost would inflate a
+    profiled one."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     det.predict_batch(images, sizes)
     torch.cuda.synchronize()
+    zero_counts()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(3):
             det.predict_batch(images, sizes)
         torch.cuda.synchronize()
+    check_counts_in_trace(prof, "graphed serving")
     total, top, by_class = device_time(prof, 3)
+    per_batch = kernel_launches(prof, 3)
+    if per_batch != {"dcn_fwd": 3, "dcn_bwd": 0, "fused_stem": 1, "conv_s2": 0}:
+        raise AssertionError(f"graphed serving: launches per batch {per_batch} in the trace")
 
     # host side of one batch: upload + normalize, enqueue of the forward
     # (returns before the card finishes), then the wait for the card
@@ -668,11 +755,135 @@ def phase_profile(det, images, sizes, batch_ms):
            if ln.strip() and ln.strip()[0].isdigit()][:12]
     del out
     emit({"phase": "profile", "batches": 3, "batch_ms_median": batch_ms,
-          "device_ms_per_batch": total,
+          "device_ms_per_batch": total, "launches_per_batch": per_batch,
           "device_idle_share": max(0.0, 1.0 - total / batch_ms),
           "host_upload_normalize_ms": upload_ms, "host_enqueue_forward_ms": enqueue_ms,
           "host_wait_ms": wait_ms, "host_hot_functions": hot, "by_class": by_class,
           "top": top})
+
+
+def eager_predict(det, pimages, sizes):
+    """``predict_batch`` as it ran before the graphs: pinned upload,
+    normalize and the model's forward, eagerly; returns (the detections on
+    the card, the host's enqueue seconds)."""
+    import torch
+
+    t0 = time.perf_counter()
+    x = torch.from_numpy(pimages).pin_memory().to(det.device, non_blocking=True)
+    s = torch.from_numpy(sizes).pin_memory().to(det.device, non_blocking=True)
+    with torch.no_grad():
+        out = det.model.predict(det.normalize(x), s)
+    return out, time.perf_counter() - t0
+
+
+def serving_modes(det, batches, sizes) -> dict:
+    """img/s, host enqueue ms and device idle share of a b8 batch served
+    eagerly, as a graph replay (``predict_batch``) and four to a replay
+    (``predict_pipelined(group=4)``), each over the same SERVE_MODE_BATCHES
+    batches; device time per batch from the profiler over 4 more."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    big = np.concatenate(batches[:GROUP])
+    big_sizes = np.concatenate([sizes] * GROUP)
+    graphs = {g: det._graphs[g] for g in (1, GROUP)}
+
+    def run(mode, i):
+        if mode == "eager":
+            out, enq = eager_predict(det, batches[i % GROUP], sizes)
+            out.cpu()
+            return enq, 1
+        g = 1 if mode == "graphed" else GROUP
+        ims, szs = (batches[i % GROUP], sizes) if g == 1 else (big, big_sizes)
+        t0 = time.perf_counter()
+        out = graphs[g]({"image": torch.from_numpy(ims).pin_memory(),
+                         "im_size": torch.from_numpy(szs).pin_memory()})
+        enq = time.perf_counter() - t0
+        out["det"].cpu()
+        return enq, g
+
+    out = {}
+    for mode in ("eager", "graphed", "pipelined"):
+        for i in range(2):
+            run(mode, i)
+        torch.cuda.synchronize()
+        enq, n, t0 = [], 0, time.perf_counter()
+        while n < SERVE_MODE_BATCHES:
+            e, g = run(mode, n)
+            enq.append(e / g)
+            n += g
+        wall = time.perf_counter() - t0
+        zero_counts()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            k = 0
+            while k < GROUP:
+                k += run(mode, k)[1]
+            torch.cuda.synchronize()
+        check_counts_in_trace(prof, f"{mode} serving")
+        device_ms = device_time(prof, GROUP)[0]
+        batch_ms = 1e3 * wall / n
+        out[mode] = {"batches": n, "img_per_s": BATCH * n / wall, "batch_ms": batch_ms,
+                     "enqueue_ms_per_batch": 1e3 * float(np.median(enq)),
+                     "device_ms_per_batch": device_ms,
+                     "device_idle_share": max(0.0, 1.0 - device_ms / batch_ms),
+                     "launches_per_batch": kernel_launches(prof, GROUP)}
+    return out
+
+
+def phase_graphs_serving(det, sd, smi: str) -> dict:
+    """The serving graphs against the eager forward on b8@608 bf16 batches:
+    graphed ``predict_batch`` bit-equal to the eager forward; again after
+    ``set_params`` with other weights (the packed DCN weights, the folded
+    stem and the BN affines are refreshed in place, and the graph reads
+    them); ``predict_pipelined(group=4)`` bit-equal to 4 ``predict_batch``;
+    K1 3 and K2 1 per batch in the trace of every mode; then img/s, enqueue
+    ms and idle share of each mode."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(11)
+    batches = [rng.randint(0, 256, (BATCH, SIZE, SIZE, 3), dtype=np.uint8)
+               for _ in range(GROUP)]
+    sizes = np.tile(np.array([[480, 640], [608, 608]], np.float32), (BATCH // 2, 1))
+
+    def equal_to_eager(tag):
+        got = det.predict_batch(batches[0], sizes)
+        want = eager_predict(det, batches[0], sizes)[0].cpu().numpy()
+        if not np.array_equal(got, want):
+            raise AssertionError(f"graphed vs eager detections differ ({tag}): max abs "
+                                 f"{float(np.abs(got - want).max())}")
+        return got
+
+    first = equal_to_eager("weights of the serving phase")
+    g = torch.Generator().manual_seed(12)
+    other = {k: (v * (1 + 0.05 * torch.randn(v.shape, generator=g))
+                 if k.endswith("weight") and v.dim() == 4 else v) for k, v in sd.items()}
+    det.set_params(other)
+    second = equal_to_eager("after set_params")
+    det.set_params(sd)
+    back = det.predict_batch(batches[0], sizes)
+    if np.array_equal(first, second) or not np.array_equal(first, back):
+        raise AssertionError("set_params did not reach the graph's weights")
+    piped = det.predict_pipelined(np.concatenate(batches), np.concatenate([sizes] * GROUP),
+                                  group=GROUP)
+    single = np.concatenate([det.predict_batch(b, sizes) for b in batches])
+    if not np.array_equal(piped, single):
+        raise AssertionError("predict_pipelined differs from predict_batch")
+    modes = serving_modes(det, batches, sizes)
+    for mode, r in modes.items():
+        if r["launches_per_batch"] != {"dcn_fwd": 3, "dcn_bwd": 0, "fused_stem": 1,
+                                       "conv_s2": 0}:
+            raise AssertionError(f"{mode}: launches per batch {r['launches_per_batch']}")
+    out = {"phase": "graphs_serving", "model": "ppyolo_2x", "size": SIZE, "batch": BATCH,
+           "precision": "bf16", "group": GROUP, "bitwise_graphed_vs_eager": True,
+           "bitwise_after_set_params": True, "bitwise_pipelined_vs_batches": True,
+           "kept_detections": int((first[..., 0] >= 0).sum()),
+           "capture_s": {str(k): sum(gr.captures.values()) for k, gr in det._graphs.items()},
+           "modes": modes, "nvidia_smi": smi,
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit(out)
+    return out
 
 
 KERNEL_CLASSES = (   # (class, substrings of the kernel name), first match wins
@@ -761,11 +972,14 @@ def phase_training(smi: str):
                                   max_iters=n_steps, model=model, after_step=mark,
                                   log_fn=lambda i, v: logged.append((i, v)))
     torch.cuda.synchronize()
-    launches = read_counts()
-    want = {"dcn_fwd": 3 * n_steps, "dcn_bwd": 3 * n_steps, "fused_stem": 0, "conv_s2": 0}
-    if launches != want:
-        raise AssertionError(f"training launch counts {launches} for {n_steps} steps, "
-                             f"want {want}")
+    launches, captured = read_counts(), read_captured()
+    # one CUDA graph (b8@608), captured at the first step after its eager
+    # warm-up run; every step is a replay
+    per_step = {"dcn_fwd": 3, "dcn_bwd": 3}
+    if (launches != expect(per_step, n_steps + warmup_iters())
+            or captured != expect(per_step, 1)):
+        raise AssertionError(f"training launch counts {launches}, captured {captured}: "
+                             f"want {per_step} per step and one captured graph")
     if state.step != n_steps or len(edges) != TRAIN_WINDOWS + 1:
         raise AssertionError(f"took {state.step} steps, {len(edges)} window edges")
     if len(logged) != n_steps // TRAIN_WINDOW_STEPS or not all(
@@ -788,38 +1002,185 @@ def phase_training(smi: str):
               "ms_per_step_median": med, "img_per_s": BATCH / (med / 1e3),
               "window_img_per_s": ips,
               "window_spread": (max(step_ms) - min(step_ms)) / med,
-              "setup_s": setup_s, "launches": launches,
+              "setup_s": setup_s, "launches": launches, "captured": captured,
               "trainable_leaves": len(state.trainable), "leaves_moved": len(state.trainable),
               "logged_losses": logged, "nvidia_smi": smi,
               "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
     emit(result)
-    return state, cfg, host, med, launches
+    return state, cfg, host, med, (launches, captured)
 
 
 def phase_train_profile(state, cfg, host, step_ms: float):
-    """Device time by kernel per step over 3 steps of the same loop body
-    (H2D of the batch, the step), and the idle share against the unprofiled
-    median step time."""
+    """Device time by kernel per step over 3 graphed steps of the same loop
+    body (H2D of the batch, the replay), K1 and K3 per step from the
+    trace, and the idle share against the unprofiled median step time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from ppyolo_tpu_torch.data.loader import host_to_device
-    from ppyolo_tpu_torch.train.train_step import make_train_step
+    from ppyolo_tpu_torch.train.loop import make_unit_step
 
     dev = torch.device("cuda")
-    step_fn = make_train_step(state.model, cfg, compute_dtype=torch.bfloat16)
     gen = torch.Generator(device=dev).manual_seed(7)
+    step_fn = make_unit_step(state.model, cfg, state, gen, compute_dtype=torch.bfloat16)
     state, _ = step_fn(state, host_to_device(host[0], dev), gen)
     torch.cuda.synchronize()
+    zero_counts()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for i in range(3):
             state, _ = step_fn(state, host_to_device(host[i % 2], dev), gen)
         torch.cuda.synchronize()
+    check_counts_in_trace(prof, "graphed fine-tuning")
     total, top, by_class = device_time(prof, 3, 30)
+    per_step = kernel_launches(prof, 3)
+    if per_step != {"dcn_fwd": 3, "dcn_bwd": 3, "fused_stem": 0, "conv_s2": 0}:
+        raise AssertionError(f"graphed fine-tuning: launches per step {per_step} in the trace")
     ours = {k: sum(e.self_device_time_total for e in prof.key_averages() if k in e.key) / 3e3
             for k in ("dcn_fwd_kernel", "dcn_bwd_kernel", "dcn_bwd_gather")}
     emit({"phase": "train_profile", "steps": 3, "ms_per_step_median": step_ms,
-          "device_ms_per_step": total, "device_idle_share": max(0.0, 1.0 - total / step_ms),
+          "device_ms_per_step": total, "launches_per_step": per_step, "device_idle_share": max(0.0, 1.0 - total / step_ms),
           "kernel_ms_per_step": ours, "by_class": by_class, "top": top})
+
+
+def tensors_diff(got: dict, want: dict) -> dict:
+    """Leaves that differ between two ``TrainState.tensors()`` snapshots,
+    and the largest absolute difference among them."""
+    import torch
+
+    bad = [k for k in want if not torch.equal(got[k], want[k])]
+    worst = max((float((got[k].double() - want[k].double()).abs().max()) for k in bad),
+                default=0.0)
+    return {"leaves_differ": len(bad), "first": bad[:5], "max_abs": worst}
+
+
+def phase_graphs_training(smi: str) -> dict:
+    """Fine-tuning (``freeze_at=0``, b8@608 bf16, DropBlock, EMA; K1 and K3
+    inside) as CUDA graphs against eager steps, cuDNN deterministic:
+
+    1. GRAPH_STEPS graphed one-step replays against as many eager steps from
+       the same state and generator: losses, params, BN statistics,
+       momentum, EMA and the step bitwise equal;
+    2. ``make_multi_train_step(n_steps=GRAPH_STEPS)`` in each target
+       pipeline, one replay each from the same start: bitwise equal to each
+       other and to the one-step replays;
+    3. ms/step, host enqueue ms and the idle share of eager steps, one-step
+       replays and multi-step replays; K1 and K3 per step from the trace;
+       capture seconds and the peak memory of the graphs."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from ppyolo_tpu_torch.data.loader import host_to_device
+    from ppyolo_tpu_torch.train.graphs import GraphedStep
+    from ppyolo_tpu_torch.train.train_step import (TARGET_PIPELINES, init_train_state,
+                                                   make_multi_train_step, make_train_step)
+
+    dev = torch.device("cuda")
+    cfg = train_config()
+    bench, det = torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic
+    torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = False, True
+    try:
+        host = [synthetic_train_batch(cfg, 20 + i, BATCH, SIZE) for i in range(GRAPH_STEPS)]
+        batches = [host_to_device(b, dev) for b in host]
+        stacked = {k: torch.stack([b[k] for b in batches]) for k in batches[0]}
+        states, gens = [], []
+        for _ in range(2):
+            model = build_model(cfg, "cuda").to(memory_format=torch.channels_last)
+            states.append(init_train_state(model, cfg))
+            gens.append(torch.Generator(device=dev).manual_seed(21))
+        eager_state, graph_state = states
+        start = {k: v.clone() for k, v in graph_state.tensors().items()}
+        gen_start = gens[1].get_state()
+        eager = make_train_step(eager_state.model, cfg, compute_dtype=torch.bfloat16)
+        want = []
+        for b in batches:
+            want.append({k: v.clone() for k, v in eager(eager_state, b, gens[0])[1].items()})
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        one = GraphedStep(make_train_step(graph_state.model, cfg, compute_dtype=torch.bfloat16),
+                          graph_state, gens[1])
+        for i, b in enumerate(batches):
+            losses = one(graph_state, b)[1]
+            bad = [k for k, v in want[i].items() if not torch.equal(losses[k], v)]
+            if bad:
+                raise AssertionError(f"graphed step {i}: losses {bad} differ from eager: "
+                                     f"{[(float(losses[k]), float(want[i][k])) for k in bad]}")
+        diff = tensors_diff(graph_state.tensors(), eager_state.tensors())
+        if diff["leaves_differ"] or not torch.equal(gens[1].get_state(), gens[0].get_state()):
+            raise AssertionError(f"graphed vs eager state after {GRAPH_STEPS} steps: {diff}")
+        one_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        after_one = {k: v.clone() for k, v in graph_state.tensors().items()}
+        del eager_state, states
+
+        def restart():
+            with torch.no_grad():
+                for k, v in graph_state.tensors().items():
+                    v.copy_(start[k])
+            gens[1].set_state(gen_start)
+            graph_state.step = 0
+
+        multi, multi_capture = {}, {}
+        for mode in TARGET_PIPELINES:
+            restart()
+            unit = GraphedStep(make_multi_train_step(graph_state.model, cfg, n_steps=GRAPH_STEPS,
+                                                     compute_dtype=torch.bfloat16,
+                                                     target_pipeline=mode),
+                               graph_state, gens[1], n_steps=GRAPH_STEPS)
+            losses = unit(graph_state, stacked)[1]
+            for k, v in losses.items():
+                if not torch.equal(v, torch.stack([w[k] for w in want])):
+                    raise AssertionError(f"{mode}: stacked losses {k} differ from the steps'")
+            d = tensors_diff(graph_state.tensors(), after_one)
+            if d["leaves_differ"]:
+                raise AssertionError(f"{mode}: state after one {GRAPH_STEPS}-step replay "
+                                     f"differs from {GRAPH_STEPS} one-step replays: {d}")
+            multi_capture[mode] = sum(unit.graphs.captures.values())
+            multi[mode] = unit   # every graph lives to the end of the phase
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+        # speed of the three forms on the same batches
+        eager_fn = make_train_step(graph_state.model, cfg, compute_dtype=torch.bfloat16)
+        forms = {"eager": lambda: [eager_fn(graph_state, b, gens[1]) for b in batches],
+                 "graphed": lambda: [one(graph_state, b) for b in batches],
+                 "multi": lambda: multi["step"](graph_state, stacked)}
+        speed = {}
+        for name, run in forms.items():
+            run()
+            torch.cuda.synchronize()
+            enq = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                run()
+                enq.append(time.perf_counter() - t0)
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(GRAPH_TIMED_UNITS):
+                run()
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0) / (GRAPH_TIMED_UNITS * GRAPH_STEPS)
+            zero_counts()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                run()
+                torch.cuda.synchronize()
+            check_counts_in_trace(prof, f"{name} fine-tuning")
+            device_ms = device_time(prof, GRAPH_STEPS)[0]
+            speed[name] = {"ms_per_step": ms,
+                           "enqueue_ms_per_step": 1e3 * float(np.median(enq)) / GRAPH_STEPS,
+                           "device_ms_per_step": device_ms,
+                           "device_idle_share": max(0.0, 1.0 - device_ms / ms),
+                           "launches_per_step": kernel_launches(prof, GRAPH_STEPS)}
+            if speed[name]["launches_per_step"] != {"dcn_fwd": 3, "dcn_bwd": 3, "fused_stem": 0,
+                                                    "conv_s2": 0}:
+                raise AssertionError(f"{name}: launches per step "
+                                     f"{speed[name]['launches_per_step']}")
+    finally:
+        torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = bench, det
+    out = {"phase": "graphs_training", "model": "ppyolo_2x", "freeze_at": 0, "size": SIZE,
+           "batch": BATCH, "precision": "bf16", "steps": GRAPH_STEPS,
+           "bitwise_graphed_vs_eager": True, "bitwise_pipelines": list(TARGET_PIPELINES),
+           "capture_s_one_step": sum(one.graphs.captures.values()),
+           "capture_s_multi": multi_capture, "peak_memory_gb_one_step_graph": one_peak_gb,
+           "peak_memory_gb_with_multi_graphs": peak_gb, "speed": speed, "nvidia_smi": smi}
+    emit(out)
+    return out
 
 
 def phase_train_check():
@@ -876,12 +1237,19 @@ def phase_train_check():
                 for k, p in model.named_parameters() if k.startswith("backbone.stage5")]
 
     def one_step(dev, emulate=False):
+        """The step's losses and stage 5's gradients (read by hooks: the
+        step takes its gradients with ``torch.autograd.grad``)."""
         model = build_model(cfg, dev).to(memory_format=cl)
         state = init_train_state(model, cfg)
+        grads = {}
+        s5 = [(k, p) for k, p in model.named_parameters() if k.startswith("backbone.stage5")]
+        hooks = [p.register_hook(lambda g, k=k: grads.__setitem__(k, g)) for k, p in s5]
         with dcn_rounding(emulate):
             _, losses = make_train_step(model, cfg)(state, host_to_device(host, torch.device(dev)))
+        for h in hooks:
+            h.remove()
         lv = torch.tensor([float(v) for k, v in losses.items() if k != "lr"], dtype=torch.float64)
-        return lv, torch.cat(stage5_grads(model))
+        return lv, torch.cat([grads[k].detach().double().cpu().flatten() for k, _ in s5])
 
     def stage5_alone(dev, emulate=False):
         model = build_model(cfg, dev).to(memory_format=cl).train()
@@ -1011,7 +1379,7 @@ def phase_entry(smi: str):
            "dataset_s": time.time() - t0, "native_loaded": lib is not None,
            "native_lib": None if lib is None else Path(lib._name).name,
            "host_cpus": os.cpu_count(), "nvidia_smi": smi}
-    cfg = entry_config(data, root)
+    cfg = entry_config(data, root, scan_steps=ENTRY_SCAN, warmup_shapes=True)
     out["kernel_checks"] = entry_kernel_checks(cfg)
 
     # the loader alone: the host's own rate with the recipe's threads
@@ -1026,22 +1394,41 @@ def phase_entry(smi: str):
     out.update(loader_threads=cfg.train_cfg["num_threads"], loader_batches=LOADER_BATCHES,
                loader_img_per_s=BATCH * LOADER_BATCHES / loader_s, loader_sizes=sizes)
 
-    # the recipe's run: ENTRY_STEPS steps, a checkpoint at the midpoint, an
-    # eval at the end
+    # the recipe's run: every size's graph captured first (warmup_shapes),
+    # ENTRY_STEPS steps in units of ENTRY_SCAN, a checkpoint at the
+    # midpoint, an eval at the end
     wdir = root / "weights"
+    torch.cuda.reset_peak_memory_stats()
     zero_counts()
     t0 = time.time()
     state = run_training(cfg, weights_dir=str(wdir))
     torch.cuda.synchronize()
     run_s = time.time() - t0
-    launches = read_counts()
+    launches, captured = read_counts(), read_captured()
     steps, evals = read_metrics(wdir)
+    warm = [json.loads(line) for line in open(wdir / "metrics.jsonl")]
+    warm = [r for r in warm if "warmup_size" in r]
     n_eval_batches = -(-ENTRY_VAL // ENTRY_EVAL_BATCH)
-    want = {"dcn_fwd": 3 * ENTRY_STEPS + 3 * n_eval_batches, "dcn_bwd": 0,
-            "fused_stem": n_eval_batches, "conv_s2": 0}
-    if state.step != ENTRY_STEPS or launches != want:
-        raise AssertionError(f"entry run: {state.step} steps, launches {launches}, want {want}")
-    if len(steps) != ENTRY_STEPS or not all(np.isfinite(r["total_loss"]) for r in steps):
+    n_sizes = len(cfg.randomShape["sizes"])
+    # one graph per size, captured by warmup_shapes after an eager warm-up
+    # run of a unit (ENTRY_SCAN steps), and one graph of the eval batches;
+    # every step and eval batch is a replay (the recipe's frozen stage 5
+    # runs no K3)
+    n_warm = warmup_iters()
+    train_steps = ENTRY_STEPS + n_warm * ENTRY_SCAN * n_sizes
+    want = {k: a + b for (k, a), b in zip(
+        expect({"dcn_fwd": 3}, train_steps).items(),
+        expect({"dcn_fwd": 3, "fused_stem": 1}, n_eval_batches + n_warm).values())}
+    want_captured = {k: a + b for (k, a), b in zip(
+        expect({"dcn_fwd": 3}, ENTRY_SCAN * n_sizes).items(),
+        expect({"dcn_fwd": 3, "fused_stem": 1}, 1).values())}
+    if state.step != ENTRY_STEPS or launches != want or captured != want_captured:
+        raise AssertionError(f"entry run: {state.step} steps, launches {launches}, captured "
+                             f"{captured}; want {want}, {want_captured}")
+    if sorted(r["warmup_size"] for r in warm) != sorted(cfg.randomShape["sizes"]):
+        raise AssertionError(f"warmup rows {warm}")
+    if (len(steps) != ENTRY_STEPS // ENTRY_SCAN
+            or not all(np.isfinite(r["total_loss"]) for r in steps)):
         raise AssertionError(f"entry metrics rows {steps}")
     files = sorted(os.listdir(wdir))
     need = {f"step{ENTRY_STEPS // 2:08d}.npz", f"step{ENTRY_STEPS:08d}.npz", "last_state.npz",
@@ -1052,29 +1439,31 @@ def phase_entry(smi: str):
             np.isfinite(v) and -1.0 <= v <= 1.0 for v in evals[0]["stats"]):
         raise AssertionError(f"eval rows {evals}")
     by_size = {}
-    for r in steps[1:]:   # the first step also pays for the run's first launches
+    for r in steps:   # every size was captured before the first unit
         by_size.setdefault(r["size"][0], []).append(1e3 * r["step_s"])
     out.update(
-        steps=ENTRY_STEPS, run_s=run_s, launches=launches, eval_batches=n_eval_batches,
-        first_step_ms=1e3 * steps[0]["step_s"], first_step_size=steps[0]["size"][0],
+        steps=ENTRY_STEPS, scan_steps=ENTRY_SCAN, run_s=run_s, launches=launches,
+        captured=captured,
+        eval_batches=n_eval_batches,
+        warmup_s_by_size={r["warmup_size"]: r["secs"] for r in warm},
+        warmup_s_total=sum(r["secs"] for r in warm),
+        first_unit_ms_per_step=1e3 * steps[0]["step_s"], first_unit_size=steps[0]["size"][0],
         step_ms_median_by_size={k: statistics.median(v) for k, v in sorted(by_size.items())},
-        steps_by_size={k: len(v) for k, v in sorted(by_size.items())},
-        step_ms_median=statistics.median(1e3 * r["step_s"] for r in steps[1:]),
+        units_by_size={k: len(v) for k, v in sorted(by_size.items())},
+        step_ms_median=statistics.median(1e3 * r["step_s"] for r in steps),
         losses_first=steps[0]["total_loss"], losses_last=steps[-1]["total_loss"],
         files={f: (wdir / f).stat().st_size for f in files if f.endswith((".npz", ".jsonl"))},
         map_stats=evals[0]["stats"], eval_s=evals[0]["eval_s"],
         eval_img_per_s=ENTRY_VAL / evals[0]["eval_s"])
+    out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out.update(entry_eval_groups(cfg, state, root))
     out.update(entry_steady(state, cfg, records))
-    k1_step = out["launches_per_step"]["dcn_fwd"]
-    out["launches_per_eval_batch"] = {
-        "dcn_fwd": (launches["dcn_fwd"] - k1_step * ENTRY_STEPS) / n_eval_batches,
-        "fused_stem": launches["fused_stem"] / n_eval_batches}
     del state
     torch.cuda.empty_cache()
     out.update(entry_resume(data, root))
     emit(out)
     shutil.rmtree(root, ignore_errors=True)
-    return launches
+    return launches, captured
 
 
 def entry_kernel_checks(cfg) -> dict:
@@ -1112,43 +1501,92 @@ def entry_kernel_checks(cfg) -> dict:
             "checks": checks}
 
 
+def entry_eval_groups(cfg, state, root: Path) -> dict:
+    """The eval of the run's final params with ``scan_group`` 1 and
+    ENTRY_SCAN_GROUP (``entry.eval.run_eval``): the 12 stats and the merged
+    detections equal, K1 3 and K2 1 per eval batch in the trace of the
+    grouped run."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from ppyolo_tpu_torch.entry.eval import run_eval
+    from ppyolo_tpu_torch.entry.train import eval_state_dict
+
+    params = eval_state_dict(state)
+    stats, dets = {}, {}
+    for g in (1, ENTRY_SCAN_GROUP):
+        rdir = root / f"eval_group{g}"
+        if g == 1:
+            stats[g] = run_eval(cfg, state_dict=params, precision="bf16", result_dir=str(rdir))
+        else:
+            zero_counts()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                stats[g] = run_eval(cfg, state_dict=params, precision="bf16",
+                                    result_dir=str(rdir), scan_group=g)
+            check_counts_in_trace(prof, "grouped eval")
+        dets[g] = (rdir / "bbox_detections.json").read_text()
+    # the trace holds the replayed batches and the eager warm-up run of the
+    # group's graph (its capture launches nothing)
+    n_batches = -(-ENTRY_VAL // ENTRY_EVAL_BATCH)
+    per_batch = kernel_launches(prof, n_batches + ENTRY_SCAN_GROUP * warmup_iters())
+    if not np.array_equal(stats[1], stats[ENTRY_SCAN_GROUP]) or dets[1] != dets[ENTRY_SCAN_GROUP]:
+        raise AssertionError(f"eval with scan_group {ENTRY_SCAN_GROUP} differs from 1: "
+                             f"{stats}")
+    if per_batch["dcn_fwd"] != 3 or per_batch["fused_stem"] != 1:
+        raise AssertionError(f"grouped eval: launches per batch {per_batch} in the trace")
+    return {"eval_scan_group": ENTRY_SCAN_GROUP, "eval_stats_equal_scan_group_1": True,
+            "eval_launches_per_batch": per_batch}
+
+
 def entry_steady(state, cfg, records) -> dict:
     """STEADY_STEPS steps on the state the entry left, the entry's loop
-    (``step_loop``, the pinned prefetcher, one sync at the end) after one
-    warm step: once fed by the live loader (its worker threads beside the
-    stepping thread) and once on the same batches made beforehand; device
-    time by kernel class over the second (``torch.profiler``); K1, K2, K3
-    counted per step there.  Both see the same sizes: the stream is keyed
-    by the iteration."""
+    (``step_loop`` over units of ENTRY_SCAN steps, each a graph replay,
+    the pinned prefetcher, one sync at the end) after one warm unit, every
+    size's graph captured first: once fed by the live loader (its worker
+    threads beside the stepping thread) and once on the same batches made
+    beforehand; device time by kernel class over the second
+    (``torch.profiler``), K1, K2, K3 per step from its trace.  Both see the
+    same sizes: the stream is keyed by the iteration."""
+    import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from ppyolo_tpu_torch.data.loader import DevicePrefetcher, Prefetcher, train_batches
-    from ppyolo_tpu_torch.train.loop import step_loop
+    from ppyolo_tpu_torch.data.loader import (DevicePrefetcher, Prefetcher, stack_units,
+                                              train_batches)
+    from ppyolo_tpu_torch.tools.warmup_shapes import warmup_units
+    from ppyolo_tpu_torch.train.loop import make_unit_step, step_loop
     from ppyolo_tpu_torch.train.train_step import make_train_step
 
     dev = next(state.model.parameters()).device
-    step_fn = make_train_step(state.model, cfg, compute_dtype=torch.bfloat16)
     gen = torch.Generator(device=dev).manual_seed(3)
+    unit_step = make_unit_step(state.model, cfg, state, gen, n_steps=ENTRY_SCAN,
+                               compute_dtype=torch.bfloat16)
     start = state.step
+    n_host = STEADY_STEPS + ENTRY_SCAN
+
+    def stream():
+        return train_batches(records, cfg, start_iter=start, shape_group=ENTRY_SCAN)
 
     def timed(batches):
-        """ms per step over the STEADY_STEPS after the warm one."""
+        """ms per step over the STEADY_STEPS after the warm unit."""
         nonlocal state
         first, marks = state.step, []
 
-        def mark(st):   # after the warm step and after the last one
-            if st.step in (first + 1, first + 1 + STEADY_STEPS):
+        def mark(st):   # after the warm unit and after the last one
+            if st.step in (first + ENTRY_SCAN, first + n_host):
                 torch.cuda.synchronize()
                 marks.append(time.perf_counter())
 
-        state = step_loop(state, step_fn, DevicePrefetcher(batches, dev), gen,
-                          max_iters=first + 1 + STEADY_STEPS, log_every=0, after_step=mark)
+        state = step_loop(state, unit_step, DevicePrefetcher(stack_units(batches, ENTRY_SCAN),
+                                                             dev),
+                          gen, max_iters=first + n_host, log_every=0, n_steps=ENTRY_SCAN,
+                          after_step=mark)
         return 1e3 * (marks[1] - marks[0]) / STEADY_STEPS
 
-    gen_b = train_batches(records, cfg, start_iter=start)
-    host = [next(gen_b) for _ in range(STEADY_STEPS + 1)]
+    gen_b = stream()
+    host = [next(gen_b) for _ in range(n_host)]
     gen_b.close()
-    live = Prefetcher(train_batches(records, cfg, start_iter=start), cfg.train_cfg["max_batch"])
+    capture_s = warmup_units(unit_step, cfg, dev, sizes={b["shape"] for b in host},
+                             scan_steps=ENTRY_SCAN)
+    live = Prefetcher(stream(), max(cfg.train_cfg["max_batch"], ENTRY_SCAN))
     try:
         live_ms = timed(live)
     finally:
@@ -1156,56 +1594,48 @@ def entry_steady(state, cfg, records) -> dict:
     zero_counts()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         preloaded_ms = timed(iter(host))
-    counts = read_counts()
-    total, top, by_class = device_time(prof, STEADY_STEPS + 1, 12)
-    host_ms, hot = step_host_profile(state, step_fn, host[0], gen)
-    per_step = {k: v / (STEADY_STEPS + 1) for k, v in counts.items()}
+    check_counts_in_trace(prof, "steady steps")
+    total, top, by_class = device_time(prof, n_host, 12)
+    per_step = kernel_launches(prof, n_host)
     if per_step != {"dcn_fwd": 3, "dcn_bwd": 0, "fused_stem": 0, "conv_s2": 0}:
-        raise AssertionError(f"steady steps: launches {counts} in {STEADY_STEPS + 1} steps")
+        raise AssertionError(f"steady steps: launches per step {per_step} in the trace")
+    unit = {k: torch.from_numpy(np.stack([b[k] for b in host[:ENTRY_SCAN]])).to(dev)
+            for k in ("image", "gt_bbox", "gt_class", "gt_score")}
+    graphed = unit_host_ms(lambda: unit_step(state, unit, gen), ENTRY_SCAN)
+    eager_fn = make_train_step(state.model, cfg, compute_dtype=torch.bfloat16)
+    one = {k: v[0] for k, v in unit.items()}
+    eager = unit_host_ms(lambda: eager_fn(state, one, gen), 1)
     return {"steady_steps": STEADY_STEPS,
-            "steady_sizes": [b["shape"] for b in host[1:STEADY_STEPS + 1]],
+            "steady_sizes": [b["shape"] for b in host[ENTRY_SCAN:]],
+            "steady_capture_s": capture_s,
             "steady_ms_per_step_live_loader": live_ms,
             "steady_ms_per_step_preloaded": preloaded_ms,
             "steady_device_ms_per_step": total,
             "steady_device_idle_share_live_loader": max(0.0, 1.0 - total / live_ms),
             "steady_device_idle_share_preloaded": max(0.0, 1.0 - total / preloaded_ms),
             "launches_per_step": per_step, "steady_by_class": by_class,
-            "steady_top": top[:8], "step_host_ms": host_ms, "step_host_hot_functions": hot}
+            "steady_top": top[:8], "host_ms_per_step_graphed_unit": graphed,
+            "host_ms_per_step_eager": eager, "host_size": host[0]["shape"]}
 
 
-def step_host_profile(state, step_fn, host_batch, gen):
-    """The host side of one step: enqueue ms (the step returns before the
-    card finishes) and wait ms, medians of 3, then the hottest functions of
-    one more step under cProfile."""
-    import cProfile
-    import io
-    import pstats
+def unit_host_ms(run, n_steps: int) -> dict:
+    """The host side of one unit of ``n_steps`` steps, per step: enqueue ms
+    (the unit returns before the card finishes) and wait ms, medians of 3."""
     import statistics
 
     import torch
-    from ppyolo_tpu_torch.data.loader import host_to_device
 
-    dev = next(state.model.parameters()).device
-    batch = host_to_device(host_batch, dev)
+    run()
     times = []
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        step_fn(state, batch, gen)
+        run()
         t1 = time.perf_counter()
         torch.cuda.synchronize()
         times.append((t1 - t0, time.perf_counter() - t1))
-    pr = cProfile.Profile()
-    pr.enable()
-    step_fn(state, batch, gen)
-    pr.disable()
-    torch.cuda.synchronize()
-    buf = io.StringIO()
-    pstats.Stats(pr, stream=buf).sort_stats("tottime").print_stats(12)
-    hot = [ln.strip() for ln in buf.getvalue().splitlines()
-           if ln.strip() and ln.strip()[0].isdigit()][:12]
-    enqueue, wait = (1e3 * statistics.median(c) for c in zip(*times))
-    return {"enqueue_ms": enqueue, "wait_ms": wait, "size": host_batch["shape"]}, hot
+    enqueue, wait = (1e3 * statistics.median(c) / n_steps for c in zip(*times))
+    return {"enqueue_ms": enqueue, "wait_ms": wait}
 
 
 def entry_resume(data: dict, root: Path) -> dict:
@@ -1218,7 +1648,8 @@ def entry_resume(data: dict, root: Path) -> dict:
 
     def cfg_for(**train):
         cfg = entry_config(data, root, **dict(dict(
-            max_iters=RESUME_STEPS, save_iter=10 ** 9, eval_iter=10 ** 9, log_iter=0), **train))
+            max_iters=RESUME_STEPS, save_iter=10 ** 9, eval_iter=10 ** 9, log_iter=0,
+            scan_steps=ENTRY_SCAN), **train))
         cfg.head = dict(cfg.head, drop_block=False)
         return cfg
 
@@ -1247,6 +1678,9 @@ def entry_resume(data: dict, root: Path) -> dict:
 
 
 def main() -> int:
+    import faulthandler
+
+    faulthandler.enable()   # a crash in native code still shows its Python stack
     try:
         import torch
 
@@ -1257,13 +1691,16 @@ def main() -> int:
         phase_build()
         rows = phase_kernels()
         counts = {"probe": phase_probe()}
-        det, images, sizes, batch_ms, counts["serving"] = phase_serving(smi)
+        det, sd, images, sizes, batch_ms, counts["serving"] = phase_serving(smi)
         phase_profile(det, images, sizes, batch_ms)
+        phase_graphs_serving(det, sd, smi)
         del det
         torch.cuda.empty_cache()
         state, cfg, host, step_ms, counts["training"] = phase_training(smi)
         phase_train_profile(state, cfg, host, step_ms)
         del state
+        torch.cuda.empty_cache()
+        phase_graphs_training(smi)
         torch.cuda.empty_cache()
         phase_train_check()
         torch.cuda.empty_cache()
@@ -1275,9 +1712,10 @@ def main() -> int:
         print(f"chip_smoke FAILED: {type(e).__name__}: {e}", file=sys.stderr, flush=True)
         return 1
     for k, row in rows.items():   # each path's counts, read just after it ran
-        by_path = {path: c[k] for path, c in counts.items()}
+        by_path = {path: c[0][k] for path, c in counts.items()}
         row["launches"] = by_path[MAIN_PATH[k]]
         row["launches_by_path"] = by_path
+        row["captured_by_path"] = {path: c[1][k] for path, c in counts.items()}
     emit({"kernels": list(rows.values())})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -3,9 +3,8 @@
 Counterpart of ``ppyolo_tpu/checkpoint/io.py``.  A params npz holds the
 dotted JAX param paths with HWIO conv kernels (``bridge.py``), so a file
 written by either package loads in the other.  A train-state bundle holds
-``params/<path>``, ``velocity/<path>`` (the SGD momentum buffers; a buffer
-SGD has not made yet is written as zeros, which ``momentum * 0 + g`` makes
-equivalent), ``ema/<path>`` and ``step``.  Loading skips unknown keys and
+``params/<path>``, ``velocity/<path>`` (the SGD momentum buffers, zeros
+before the first step), ``ema/<path>`` and ``step``.  Loading skips unknown keys and
 shape mismatches (reference train.py:156-169, class-count fine-tuning);
 writes are atomic (a temporary name, then a rename).
 """
@@ -84,15 +83,17 @@ def save_train_state(path: str, state) -> None:
 def load_train_state(path: str, state):
     """Restore a bundle into ``state`` in place (and return it): the
     model's params and buffers, the optimizer's momentum buffers, the EMA
-    shadow and the step.  Unknown keys and shape mismatches are skipped in
-    every section, as ``load_params_npz`` skips them."""
-    sections = {"params": state.model.state_dict(), "velocity": state.trainable,
+    shadow and both step counters.  Every value is copied into the live
+    tensor (none is rebound), so a CUDA graph captured on ``state`` steps
+    from the restored values.  Unknown keys and shape mismatches are
+    skipped in every section, as ``load_params_npz`` skips them."""
+    sections = {"params": state.model.state_dict(), "velocity": state.optimizer.bufs,
                 "ema": state.ema or {}}
     params, skipped = {}, []
     with np.load(path) as data:
         for k in data.files:
             if k == "step":
-                state.step = int(data[k])
+                state.set_step(int(data[k]))
                 continue
             section, _, key = k.partition("/")
             dst = sections.get(section, {}).get(key)
@@ -101,11 +102,6 @@ def load_train_state(path: str, state):
                 skipped.append(k)
             elif section == "params":
                 params[key] = t
-            elif section == "velocity":
-                slot = state.optimizer.state[dst]
-                if "momentum_buffer" not in slot:
-                    slot["momentum_buffer"] = torch.empty_like(dst, requires_grad=False)
-                slot["momentum_buffer"].copy_(t)
             else:
                 dst.copy_(t)
     state.model.load_state_dict(params, strict=False)

@@ -38,16 +38,25 @@
 //   bilinear weights of the valid corners and through the clamp with
 //   jnp.clip's rule -- half the gradient exactly at a bound, none outside --
 //   and the mask gradient dmod * m * (1 - m)) once per element.  For dx it
-//   only bins: each valid corner takes a slot (one int atomic, issued before
-//   the channel loop and used after it) in its dx pixel's bin of `cap`
-//   (item, w_c * sigmoid(mask)) entries.
-// * dcn_bwd_gather: one warp per (dx pixel, 256 channels) reads its bin 32
-//   entries at a time, sums w * dm[item] in fp32 registers and writes the sum
-//   to dx with one plain store: 4 x C/4 float atomics per (pixel, tap)
-//   become one int atomic per corner, and dx needs no zero fill (every
-//   element is written once).  A corner whose bin is full (more than `cap`
-//   taps on one pixel) goes to an overflow list that its pixel's warp scans,
-//   so any offsets are right.
+//   only files each corner: entry e = item * 4 + corner gets its dx pixel
+//   (N*H*W when the corner is invalid) and its weight w_c * sigmoid(mask)
+//   in the entry list, and a valid corner takes a slot (one int atomic,
+//   issued before the channel loop and used after it) in its dx pixel's
+//   bin of CAP (entry, weight) pairs.
+// * dcn_bwd_gather: one warp per (dx pixel, 256 channels) puts its bin in
+//   entry order (each entry's rank is the count of smaller ones, by
+//   shuffles over the bin's own entries; the entries are distinct), sums
+//   w * dm[item] in fp32 registers in that order and writes the sum to dx
+//   with one plain store: no float atomics, and dx needs no zero fill
+//   (every element is written once).  A pixel with more than CAP corners
+//   (rare) scans the whole entry list for its own, in entry order, so any
+//   offsets are right.
+// The slots follow the atomics' order, which changes from run to run, but
+// the sum runs in entry order, so dx is the same bits on every run (and
+// the same as a stable sort of the entries by pixel would give).  Summing
+// in slot order, as the first binned form did, changed dx in its last bits
+// from run to run, and no two training runs were equal; a CUB radix sort of
+// all entries by pixel, tried next, was deterministic but slower (PERF.md).
 // Left for a later PR: dm and cols (53 MB a launch) dominate the bytes, and
 // the gather re-reads dm rows from L2 (~4 x 26.6 MB); the products that make
 // dm and read cols could be fused with these kernels.
@@ -55,10 +64,10 @@
 // Layouts: x NHWC bf16; om and d_om [N, oH, oW, 3*k2] in the layer's dtype
 // T (bf16, or fp32 for an fp32 layer whose x the wrapper rounded to bf16);
 // dm and cols [N*oH*oW, k2*C] bf16 (tap-major, then channel); dx NHWC fp32;
-// cnt [N*H*W + 1] int32 (the bins' counts, then the overflow count), zeroed
-// by the wrapper; bins [N*H*W, cap] int2 (item, weight bits); over
-// [N*oH*oW*k2*4] int4 (pixel, item, weight bits, -).  Requires C % 8 == 0
-// and 16-byte aligned x, dm, cols and dx (checked by the wrapper).
+// the E = N*oH*oW*k2*4 entries: keys uint32 (the dx pixel) and wts fp32;
+// cnt [N*H*W] int32, zeroed by the wrapper, and bins [N*H*W, CAP] int2 the
+// dx pixels' bins of (entry, weight bits).  Requires C % 8 == 0 and 16-byte aligned x,
+// dm, cols and dx (checked by the wrapper).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -70,9 +79,11 @@ constexpr int WARPS = THREADS / 32;
 constexpr int LANE_CH = 8;  // channels per lane: one 16-byte load
 constexpr int STEP = 32 * LANE_CH;  // channels per warp step
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int PER_LANE = 4;           // bin entries a lane holds in the gather
+constexpr int CAP = 32 * PER_LANE;    // entries of a dx pixel's bin
 
 struct Geom {
-  int N, H, W, C, oH, oW, kh, kw, stride, pad, k2, cap;
+  int N, H, W, C, oH, oW, kh, kw, stride, pad, k2;
 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -138,7 +149,7 @@ __global__ void __launch_bounds__(THREADS, 3)
 dcn_bwd_kernel(const __nv_bfloat16* __restrict__ x, const T* __restrict__ om,
                const __nv_bfloat16* __restrict__ dm, T* __restrict__ d_om,
                __nv_bfloat16* __restrict__ cols, int* __restrict__ cnt, int2* __restrict__ bins,
-               int4* __restrict__ over, Geom g) {
+               unsigned* __restrict__ keys, float* __restrict__ wts, Geom g) {
   const int lane = threadIdx.x % 32;
   const long long items = (long long)g.N * g.oH * g.oW * g.k2;
   const long long item = (long long)blockIdx.x * WARPS + threadIdx.x / 32;
@@ -155,19 +166,22 @@ dcn_bwd_kernel(const __nv_bfloat16* __restrict__ x, const T* __restrict__ om,
 #pragma unroll
   for (int c = 0; c < 4; ++c) idx[c] = k.yi[c] * g.W + k.xi[c];
 
-  // lane c < 4 takes corner c's slot in its dx pixel's bin now; the slot is
-  // used only after the channel loop, so the atomic's round trip overlaps it
-  int slot = 0;
+  // lane c < 4 files corner c as entry e and takes its slot in its dx
+  // pixel's bin now; the slot is used only after the channel loop, so the
+  // atomic's round trip overlaps it
+  const unsigned pixels = (unsigned)((size_t)g.N * g.H * g.W);
+  const int e = (int)(item * 4 + lane);
+  int slot = CAP;
   size_t q = 0;
   float bw = 0.f;
-  bool mine = false;  // this lane bins a valid corner
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
-    if (lane == c && k.valid[c]) {
-      mine = true;
-      q = img + idx[c];
+    if (lane == c) {
+      q = k.valid[c] ? img + idx[c] : (size_t)pixels;
       bw = k.wgt[c] * k.mod;
-      slot = atomicAdd(cnt + q, 1);
+      keys[e] = (unsigned)q;
+      wts[e] = bw;
+      if (k.valid[c]) slot = atomicAdd(cnt + q, 1);
     }
   }
 
@@ -206,14 +220,7 @@ dcn_bwd_kernel(const __nv_bfloat16* __restrict__ x, const T* __restrict__ om,
     }
   }
 
-  if (mine) {
-    if (slot < g.cap) {
-      bins[q * g.cap + slot] = make_int2((int)item, __float_as_int(bw));
-    } else {  // the bin is full: the overflow list (count in cnt[N*H*W])
-      const int o = atomicAdd(cnt + (size_t)g.N * g.H * g.W, 1);
-      over[o] = make_int4((int)q, (int)item, __float_as_int(bw), 0);
-    }
-  }
+  if (slot < CAP) bins[q * CAP + slot] = make_int2(e, __float_as_int(bw));  // else the list
 
   dmod = warp_sum(dmod);
 #pragma unroll
@@ -243,49 +250,69 @@ __device__ __forceinline__ void accumulate(float (&acc)[LANE_CH], const __nv_bfl
   for (int j = 0; j < LANE_CH; ++j) acc[j] += w * v[j];
 }
 
-// dx[q] = sum over q's bin of w * dm[item], one warp per (dx pixel, STEP
-// channels), fp32 in registers; the bin's entries are loaded 32 at a time
-// and handed round with shuffles.  A pixel whose bin overflowed also scans
-// the overflow list for its entries.  Every dx element is written, once.
+// dx[q] = sum over q's entries of w * dm[item], in entry order: one warp per
+// (dx pixel, STEP channels), fp32 in registers; the entries are handed round
+// 32 at a time with shuffles.  Every dx element is written, once.
 __global__ void __launch_bounds__(THREADS)
 dcn_bwd_gather(const __nv_bfloat16* __restrict__ dm, const int* __restrict__ cnt,
-               const int2* __restrict__ bins, const int4* __restrict__ over,
-               float* __restrict__ dx, Geom g) {
-  const int lane = threadIdx.x % 32;
+               const int2* __restrict__ bins, const unsigned* __restrict__ keys,
+               const float* __restrict__ wts, float* __restrict__ dx, int n_entries, Geom g) {
+  __shared__ int2 order[WARPS][CAP];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int steps = (g.C + STEP - 1) / STEP;
-  const long long wid = (long long)blockIdx.x * WARPS + threadIdx.x / 32;
+  const long long wid = (long long)blockIdx.x * WARPS + warp;
   const long long pixels = (long long)g.N * g.H * g.W;
   const long long q = wid / steps;
-  if (q >= pixels) return;
+  if (q >= pixels) return;  // the whole warp leaves together
   const int c = (int)(wid % steps) * STEP + 8 * lane;
   const bool c_ok = c < g.C;  // C % 8 == 0
   const int total = cnt[q];
-  const int ne = min(total, g.cap);
   float acc[LANE_CH];
 #pragma unroll
   for (int j = 0; j < LANE_CH; ++j) acc[j] = 0.f;
-  for (int e0 = 0; e0 < ne; e0 += 32) {
-    const int2 b = e0 + lane < ne ? bins[q * g.cap + e0 + lane] : make_int2(0, 0);
-    const int m = min(32, ne - e0);
-#pragma unroll 4
-    for (int i = 0; i < m; ++i)
-      accumulate(acc, dm, __shfl_sync(FULL, b.x, i), __int_as_float(__shfl_sync(FULL, b.y, i)),
-                 c, c_ok, g.C);
-  }
-  if (total > g.cap) {  // rare: more than cap corners on this pixel
-    const int no = cnt[pixels];
-    for (int e0 = 0; e0 < no; e0 += 32) {
-      int dest = -1, item = 0, wbits = 0;
-      if (e0 + lane < no) {
-        const int4 o = over[e0 + lane];
-        dest = o.x;
-        item = o.y;
-        wbits = o.z;
+  if (total <= CAP) {
+    int2 mine[PER_LANE];
+    int rank[PER_LANE];
+#pragma unroll
+    for (int j = 0; j < PER_LANE; ++j) {
+      const int i = 32 * j + lane;
+      mine[j] = i < total ? __ldg(bins + q * CAP + i) : make_int2(0x7fffffff, 0);
+      rank[j] = 0;
+    }
+#pragma unroll
+    for (int j2 = 0; j2 < PER_LANE; ++j2) {
+      const int n = min(32, total - 32 * j2);  // the same for the whole warp
+      if (n <= 0) break;
+      for (int i = 0; i < n; ++i) {
+        const int v = __shfl_sync(FULL, mine[j2].x, i);
+#pragma unroll
+        for (int j = 0; j < PER_LANE; ++j) rank[j] += v < mine[j].x;
       }
-      for (unsigned mine = __ballot_sync(FULL, dest == (int)q); mine; mine &= mine - 1) {
-        const int i = __ffs(mine) - 1;
-        accumulate(acc, dm, __shfl_sync(FULL, item, i), __int_as_float(__shfl_sync(FULL, wbits, i)),
-                   c, c_ok, g.C);
+    }
+#pragma unroll
+    for (int j = 0; j < PER_LANE; ++j)
+      if (32 * j + lane < total) order[warp][rank[j]] = mine[j];
+    __syncwarp();
+    for (int e0 = 0; e0 < total; e0 += 32) {
+      int e = 0;
+      float w = 0.f;
+      if (e0 + lane < total) {
+        const int2 o = order[warp][e0 + lane];
+        e = o.x;
+        w = __int_as_float(o.y);
+      }
+      const int m = min(32, total - e0);
+#pragma unroll 4
+      for (int i = 0; i < m; ++i)
+        accumulate(acc, dm, __shfl_sync(FULL, e, i) >> 2, __shfl_sync(FULL, w, i), c, c_ok, g.C);
+    }
+  } else {  // rare: more than CAP corners on this pixel
+    for (int e0 = 0; e0 < n_entries; e0 += 32) {
+      const int e = e0 + lane;
+      const bool ours = e < n_entries && __ldg(keys + e) == (unsigned)q;
+      for (unsigned b = __ballot_sync(FULL, ours); b; b &= b - 1) {
+        const int i = e0 + __ffs(b) - 1;
+        accumulate(acc, dm, i >> 2, __ldg(wts + i), c, c_ok, g.C);
       }
     }
   }
@@ -297,20 +324,20 @@ dcn_bwd_gather(const __nv_bfloat16* __restrict__ dm, const int* __restrict__ cnt
 
 template <typename T>
 int launch(const void* x, const void* om, const void* dm, void* dx, void* d_om, void* cols,
-           void* cnt, void* bins, void* over, const Geom& g, cudaStream_t stream) {
+           void* cnt, void* bins, void* keys, void* wts, const Geom& g, cudaStream_t stream) {
   const long long items = (long long)g.N * g.oH * g.oW * g.k2;
   dcn_bwd_kernel<T><<<(unsigned)((items + WARPS - 1) / WARPS), THREADS, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const T*>(om),
       static_cast<const __nv_bfloat16*>(dm), static_cast<T*>(d_om),
       static_cast<__nv_bfloat16*>(cols), static_cast<int*>(cnt), static_cast<int2*>(bins),
-      static_cast<int4*>(over), g);
+      static_cast<unsigned*>(keys), static_cast<float*>(wts), g);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long warps = (long long)g.N * g.H * g.W * ((g.C + STEP - 1) / STEP);
   dcn_bwd_gather<<<(unsigned)((warps + WARPS - 1) / WARPS), THREADS, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(dm), static_cast<const int*>(cnt),
-      static_cast<const int2*>(bins), static_cast<const int4*>(over), static_cast<float*>(dx),
-      g);
+      static_cast<const int2*>(bins), static_cast<const unsigned*>(keys),
+      static_cast<const float*>(wts), static_cast<float*>(dx), (int)(items * 4), g);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -329,13 +356,16 @@ extern "C" int dcn_bwd_blocks_per_sm(int which) {
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
+// The entries of a dx pixel's bin (the wrapper allocates N*H*W of them).
+extern "C" int dcn_bwd_bin_cap() { return CAP; }
+
 // om and d_om are fp32 when is_f32, else bf16; x, dm and cols are bf16, dx
-// fp32.  cnt [N*H*W + 1] (zeroed), bins [N*H*W, cap] and over [N*oH*oW*k2*4]
-// are the dx pixels' bins, the bins' counts and the overflow list.
+// fp32.  cnt [N*H*W] (zeroed) and bins [N*H*W, dcn_bwd_bin_cap()] int2 are
+// the dx pixels' bins and their counts; keys and wts hold the N*oH*oW*k2*4
+// entries' dx pixels and weights.
 extern "C" int dcn_bwd_launch(const void* x, const void* om, const void* dm, void* dx,
-                              void* d_om, void* cols, void* cnt, void* bins, void* over,
-                              int cap,
-                              int is_f32, int N, int H, int W, int C, int oH, int oW, int kh,
+                              void* d_om, void* cols, void* cnt, void* bins, void* keys,
+                              void* wts, int is_f32, int N, int H, int W, int C, int oH, int oW, int kh,
                               int kw, int stride, int pad, void* stream) {
   Geom g;
   g.N = N;
@@ -349,8 +379,7 @@ extern "C" int dcn_bwd_launch(const void* x, const void* om, const void* dm, voi
   g.stride = stride;
   g.pad = pad;
   g.k2 = kh * kw;
-  g.cap = cap;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_f32 ? launch<float>(x, om, dm, dx, d_om, cols, cnt, bins, over, g, s)
-                : launch<__nv_bfloat16>(x, om, dm, dx, d_om, cols, cnt, bins, over, g, s);
+  return is_f32 ? launch<float>(x, om, dm, dx, d_om, cols, cnt, bins, keys, wts, g, s)
+                : launch<__nv_bfloat16>(x, om, dm, dx, d_om, cols, cnt, bins, keys, wts, g, s);
 }

@@ -9,6 +9,9 @@ Counterpart of ``ppyolo_tpu/data/loader.py``:
 * ``train_batches``: the infinite shuffled stream, every draw keyed by
   (seed, shard, epoch or iter, slot), so it is bitwise the JAX package's,
   independent of thread order, and fast-forwardable to ``start_iter``;
+* ``stack_units``: ``scan_steps`` consecutive batches (one size, through
+  ``train_batches(shape_group=scan_steps)``) stacked into one unit of work
+  for a multi-step function (``train.py:191-200``);
 * ``Prefetcher``: a background thread over a bounded queue that relays a
   producer's exception and can be closed;
 * ``DevicePrefetcher``: copies each batch to the card through pinned
@@ -18,11 +21,12 @@ Counterpart of ``ppyolo_tpu/data/loader.py``:
 from __future__ import annotations
 
 import contextlib
+import itertools
 import queue
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Dict, Iterator, List, Optional
+from typing import Any, Dict, Iterable, Iterator, List, Optional
 
 import numpy as np
 import torch
@@ -181,6 +185,28 @@ def train_batches(records: List[dict], cfg, *, seed: int = 0, start_iter: int = 
     finally:
         if pool is not None:
             pool.shutdown(wait=True)
+
+
+def stack_units(batches: Iterable[Dict[str, Any]], n_steps: int) -> Iterator[Dict[str, Any]]:
+    """The batches themselves for ``n_steps`` 1, else units of ``n_steps``
+    consecutive batches: each ``BATCH_KEYS`` array stacked on a new leading
+    axis ('targets' level by level), other keys (``shape``) from the first
+    batch.  Ends when fewer than ``n_steps`` batches remain."""
+    if n_steps <= 1:
+        yield from batches
+        return
+    it = iter(batches)
+    while True:
+        group = list(itertools.islice(it, n_steps))
+        if len(group) < n_steps:
+            return
+        unit = dict(group[0])
+        for k in BATCH_KEYS:
+            if k == "targets" and k in unit:
+                unit[k] = tuple(np.stack(lv) for lv in zip(*(g[k] for g in group)))
+            elif k in unit:
+                unit[k] = np.stack([g[k] for g in group])
+        yield unit
 
 
 class Prefetcher:

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from .. import native
+from ..ops.module import device_constant
 
 
 def _wh_iou(gw, gh, aw, ah):
@@ -179,8 +180,8 @@ def gt2yolo_targets_device(gt_bbox: torch.Tensor, gt_class: torch.Tensor,
     h, w = im_hw
     dev = gt_bbox.device
     f32 = torch.float32
-    anchors_t = torch.as_tensor(anchors, dtype=f32, device=dev).reshape(-1, 2)
-    an_hw = anchors_t / torch.tensor([[w, h]], dtype=f32, device=dev)
+    anchors_t = device_constant(anchors, f32, dev).reshape(-1, 2)
+    an_hw = anchors_t / device_constant([[w, h]], f32, dev)
     b, m = gt_class.shape
     gt_bbox = gt_bbox.to(f32)
     gt_score = gt_score.to(f32)
@@ -202,7 +203,7 @@ def gt2yolo_targets_device(gt_bbox: torch.Tensor, gt_class: torch.Tensor,
     for mask, ds in zip(anchor_masks, downsample_ratios):
         grid_h, grid_w = int(h // ds), int(w // ds)
         an = len(mask)
-        mask_t = torch.as_tensor(mask, device=dev)
+        mask_t = device_constant(mask, torch.int64, dev)
         gi = torch.clamp((gx * grid_w).to(torch.int32), 0, grid_w - 1).to(torch.int64)
         gj = torch.clamp((gy * grid_h).to(torch.int32), 0, grid_h - 1).to(torch.int64)
         assigned = valid[..., None] & (best_idx[..., None] == mask_t)   # [B,M,an]
@@ -231,7 +232,7 @@ def gt2yolo_targets_device(gt_bbox: torch.Tensor, gt_class: torch.Tensor,
         fields = torch.stack([tx, ty, tw, th, tscale, score_s], dim=-1) * hasf
         # multi-hot classes: a bit for every assigned gt of the (cell, slot)
         cls_plane = torch.zeros(b, grid_h * grid_w * an * num_classes, device=dev)
-        flat = slot * num_classes + cls_index.repeat_interleave(an, dim=1)
+        flat = slot * num_classes + cls_index[..., None].expand(b, m, an).reshape(b, m * an)
         bits = (assigned.to(f32) * cls_ok[..., None]).reshape(b, m * an)
         cls_plane.scatter_add_(1, flat, bits)
         cls_plane = cls_plane.clamp_max(1.0).reshape(b, grid_h, grid_w, an, num_classes)

@@ -5,9 +5,9 @@
 Weights come from ``eval_cfg['model_path']`` (an npz in the JAX package's
 format; random weights from seed 0 when it is missing) or the caller's
 ``state_dict``.  ``type_='test_dev'`` writes the submission json of
-``cfg.test_path`` instead.  Several cards (``ndev > 1``), scanned batch
-groups (``scan_group > 1``) and ``.pt`` weights are not ported and raise
-``NotImplementedError``.
+``cfg.test_path`` instead.  ``--scan_group N`` runs N batches as one unit
+of work (``Detector.predict_pipelined``).  Several cards (``ndev > 1``) and
+``.pt`` weights are not ported and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -75,7 +75,8 @@ def main(argv: Optional[list] = None, type_: str = "eval"):
     p.add_argument("--use_gpu", type=str2bool, default=True, help="False runs on the host CPU")
     p.add_argument("--precision", type=str, default="fp32", choices=["fp32", "bf16"])
     p.add_argument("--ndev", type=int, default=1, help="cards (only 1 is ported)")
-    p.add_argument("--scan_group", type=int, default=1, help="only 1 is ported")
+    p.add_argument("--scan_group", type=int, default=1,
+                   help=">1 runs that many batches as one unit (one CUDA graph replay)")
     p.add_argument("--result_dir", type=str, default="eval_results")
     args = p.parse_args(argv)
     return run_eval(get_config(args.config), type_=type_, precision=args.precision,

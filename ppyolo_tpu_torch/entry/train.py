@@ -18,9 +18,16 @@ steps a COCO eval on ``cfg.val_path`` (the best AP's params in
 ``best_model.npz``).  The eval runs at the training precision, on an eval
 model of its own that ``Detector.set_params`` refreshes.
 
+``train_cfg['scan_steps']`` batches of one size make a unit of work
+(``make_multi_train_step``); on a card every unit is one replay of a CUDA
+graph, captured at the first unit of each size, or for every size before
+the loop with ``train_cfg['warmup_shapes']`` (one ``{"warmup_size", "secs",
+"time"}`` line per size in metrics.jsonl).  Checkpoints and evals fall on
+the units that cross their cadence, as in ``train.py``.
+
 Not ported, and refused with ``NotImplementedError``: several cards or
-processes (``ndev > 1``), ``scan_steps > 1``, the orbax checkpoint
-backend, ``warmup_shapes`` and ``.pt`` weights.
+processes (``ndev > 1``), the orbax checkpoint backend and ``.pt``
+weights.
 """
 from __future__ import annotations
 
@@ -36,14 +43,15 @@ import torch
 from ..checkpoint.io import (AsyncCheckpointer, gc_checkpoints, load_params_npz,
                              load_train_state, resume_step_from_filename)
 from ..data.coco import CocoJson, category_maps, data_clean
-from ..data.loader import DevicePrefetcher, Prefetcher, train_batches
+from ..data.loader import DevicePrefetcher, Prefetcher, stack_units, train_batches
 from ..eval.coco_eval import clsid_to_catid, coco_eval
 from ..eval.detector import Detector
 from ..models import PPYOLO
 from ..ops.ema import ema_apply
 from ..ops.module import resolve_device
-from ..train.loop import PRECISIONS, step_loop
-from ..train.train_step import TrainState, init_train_state, make_train_step
+from ..tools.warmup_shapes import warmup_units
+from ..train.loop import PRECISIONS, make_unit_step, step_loop
+from ..train.train_step import TrainState, init_train_state
 
 logger = logging.getLogger(__name__)
 
@@ -64,13 +72,9 @@ def check_ported(cfg, ndev: int = 1) -> None:
     tc = cfg.train_cfg
     if ndev > 1:
         raise NotImplementedError("training on several cards is not ported (ROADMAP §1 item 8)")
-    if int(tc.get("scan_steps", 1)) > 1:
-        raise NotImplementedError("scan_steps > 1 is not ported (ROADMAP §1 item 6)")
     if tc.get("ckpt_backend", "npz") != "npz":
         raise NotImplementedError(f"checkpoint backend {tc['ckpt_backend']!r} is not ported "
                                   "(ROADMAP §1 item 8)")
-    if tc.get("warmup_shapes"):
-        raise NotImplementedError("warmup_shapes is not ported (ROADMAP §1 item 4)")
     if str(tc.get("model_path") or "").endswith(".pt"):
         raise NotImplementedError(".pt weights are not ported (ROADMAP §1 item 12)")
 
@@ -99,14 +103,14 @@ def run_training(cfg, *, weights_dir: str = "./weights", device=None,
         logger.info("loaded %s (resume iter %d)", model_path, start_iter)
     model.to(device=dev, memory_format=torch.channels_last)
     state = init_train_state(model, cfg)
-    state.step = start_iter
+    state.set_step(start_iter)
     resume_state = tc.get("resume_state")
     if resume_state and os.path.exists(resume_state):
         load_train_state(resume_state, state)
         logger.info("resumed full train state from %s (step %d)", resume_state, state.step)
     # the data stream and the LR restart from the restored step
     start_iter = max(start_iter, state.step)
-    state.step = start_iter
+    state.set_step(start_iter)
     os.makedirs(weights_dir, exist_ok=True)
 
     coco = CocoJson(cfg.train_path)
@@ -114,8 +118,10 @@ def run_training(cfg, *, weights_dir: str = "./weights", device=None,
     records = data_clean(coco, coco.get_img_ids(), catid2clsid, cfg.train_pre_path)
     logger.info("%d samples in train set.", len(records))
 
-    step_fn = make_train_step(model, cfg, compute_dtype=PRECISIONS[precision])
+    scan_steps = int(tc.get("scan_steps", 1))
     generator = torch.Generator(device=dev).manual_seed(1)
+    unit_step = make_unit_step(model, cfg, state, generator, n_steps=scan_steps,
+                               compute_dtype=PRECISIONS[precision])
     metrics_path = os.path.join(weights_dir, "metrics.jsonl")
     ckpt = AsyncCheckpointer()
     eval_det, best_ap = None, -1.0   # one eval model, refreshed by set_params
@@ -132,14 +138,16 @@ def run_training(cfg, *, weights_dir: str = "./weights", device=None,
     def after_step(st: TrainState):
         nonlocal eval_det, best_ap
         it = st.step
-        if it % tc["save_iter"] == 0:
+        # the unit that crosses a multiple of the cadence saves / evals
+        if it % tc["save_iter"] < scan_steps and it >= tc["save_iter"]:
             # joins the previous write, so GC sees every earlier file finished
             # and skips this one's temporary
             ckpt.save_step(os.path.join(weights_dir, f"step{it:08d}.npz"), eval_state_dict(st),
                            os.path.join(weights_dir, "last_state.npz"), st)
             gc_checkpoints(weights_dir, keep=10)
             logger.info("saved %s/step%08d.npz", weights_dir, it)
-        if it % tc["eval_iter"] == 0 and os.path.exists(cfg.val_path):
+        if (it % tc["eval_iter"] < scan_steps and it >= tc["eval_iter"]
+                and os.path.exists(cfg.val_path)):
             t0 = time.time()
             params = eval_state_dict(st)
             if eval_det is None:
@@ -163,11 +171,21 @@ def run_training(cfg, *, weights_dir: str = "./weights", device=None,
                 best_ap = ap
                 ckpt.save_params(os.path.join(weights_dir, "best_model.npz"), params)
 
-    host = Prefetcher(train_batches(records, cfg, seed=0, start_iter=start_iter),
-                      max_batch=tc.get("max_batch", 3))
+    if tc.get("warmup_shapes") and getattr(cfg, "randomShape", None):
+        def on_size(size, secs):
+            logger.info("warmup %dx%d: %.1fs", size, size, secs)
+            log_row({"warmup_size": int(size), "secs": round(secs, 2), "time": time.time()})
+
+        warmup_units(unit_step, cfg, dev, sizes=cfg.randomShape["sizes"],
+                     scan_steps=scan_steps, on_size=on_size)
+
+    host = Prefetcher(train_batches(records, cfg, seed=0, start_iter=start_iter,
+                                    shape_group=scan_steps),
+                      max_batch=max(tc.get("max_batch", 3), scan_steps))
     try:
-        state = step_loop(state, step_fn, DevicePrefetcher(host, dev), generator,
-                          max_iters=int(tc["max_iters"]), log_every=int(tc.get("log_iter", 20)),
+        state = step_loop(state, unit_step, DevicePrefetcher(stack_units(host, scan_steps), dev),
+                          generator, max_iters=int(tc["max_iters"]),
+                          log_every=int(tc.get("log_iter", 20)), n_steps=scan_steps,
                           on_log=on_log, after_step=after_step)
     finally:
         host.close()
@@ -187,7 +205,8 @@ def main(argv: Optional[list] = None) -> TrainState:
     p.add_argument("--ndev", type=int, default=1, help="cards (only 1 is ported)")
     p.add_argument("--precision", type=str, default="fp32", choices=["fp32", "bf16"],
                    help="bf16 = mixed-precision forward (fp32 masters)")
-    p.add_argument("--scan_steps", type=int, default=1, help="only 1 is ported")
+    p.add_argument("--scan_steps", type=int, default=1,
+                   help=">1 steps that many batches as one unit (one CUDA graph replay)")
     p.add_argument("--weights_dir", type=str, default="./weights")
     args = p.parse_args(argv)
     cfg = get_config(args.config)

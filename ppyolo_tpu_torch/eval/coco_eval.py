@@ -108,14 +108,15 @@ def coco_eval(detector, images: List[dict], eval_pre_path: str, anno_file: str,
     or None for ``type_ == 'test_dev'``.  With ``draw_image`` the
     detections above ``draw_thresh`` are drawn into ``result_dir/images``.
 
-    Multi-process evaluation (``distributed``) and scanned batch groups
-    (``scan_group > 1``) are not ported (ROADMAP §1 items 8 and 2)."""
+    ``scan_group > 1`` runs that many full batches as one unit of work
+    (``Detector.predict_pipelined``: one graph replay on a card) and the
+    remaining batches one by one; the detections and the shard files are
+    the same as with ``scan_group=1``.  Multi-process evaluation
+    (``distributed``) is not ported (ROADMAP §1 item 8)."""
     import cv2
 
     if distributed:
         raise NotImplementedError("distributed eval is not ported (ROADMAP §1 item 8)")
-    if scan_group > 1:
-        raise NotImplementedError("scan_group > 1 is not ported (ROADMAP §1 item 2)")
     clsid2catid = clsid2catid or COCO_CLSID2CATID
     bbox_dir = os.path.join(result_dir, "bbox")
     if os.path.exists(result_dir):
@@ -159,14 +160,36 @@ def coco_eval(detector, images: List[dict], eval_pre_path: str, anno_file: str,
     all_dets: List[dict] = []
     start = time.time()
     with ThreadPoolExecutor(max_workers=4) as writers, \
-            Prefetcher(read_batches(), max_batch=3) as reader:
+            Prefetcher(read_batches(), max_batch=max(3, scan_group + 1)) as reader:
         pending = []
-        for pimages, sizes, batch, raw_imgs in reader:
-            preds = detector.predict_batch(pimages, sizes)
+
+        def handle(preds, batch, raw_imgs):
             for j, im in enumerate(batch):
                 dets = detections_to_coco(preds[j], im["id"], clsid2catid)
                 all_dets.extend(dets)
                 pending.append(writers.submit(write_one, dets, im, preds[j], raw_imgs[j]))
+
+        def run_group(units):
+            """A full group as one unit (``coco_eval.py:219-241``), a short
+            tail batch by batch."""
+            if scan_group > 1 and len(units) == scan_group:
+                preds = detector.predict_pipelined(np.concatenate([u[0] for u in units]),
+                                                   np.concatenate([u[1] for u in units]),
+                                                   group=scan_group)
+                for g, u in enumerate(units):
+                    handle(preds[g * eval_batch_size:(g + 1) * eval_batch_size], u[2], u[3])
+            else:
+                for u in units:
+                    handle(detector.predict_batch(u[0], u[1]), u[2], u[3])
+
+        group: list = []
+        for unit in reader:
+            group.append(unit)
+            if len(group) == max(scan_group, 1):
+                run_group(group)
+                group = []
+        if group:
+            run_group(group)
         for fut in pending:
             fut.result()   # a writer's exception surfaces here
     cost = time.time() - start

@@ -4,9 +4,14 @@ Matrix-NMS on the device with one [B, keep_top_k, 6] copy back.
 Counterpart of ``ppyolo_tpu/eval/detector.py::Detector``.  Images travel to
 the device as uint8 NHWC, staged through pinned memory, and are
 normalized there; the NHWC batch viewed as NCHW is ``channels_last``, so no
-layout copy happens.  Runs eagerly.  The Detector casts, re-lays and
-BN-folds the model it is given, so it needs a model of its own (never the
-one being trained): ``set_params`` loads new weights into it.
+layout copy happens.  On a card a predict is one replay of a CUDA graph
+(``train/graphs.py``), captured at the first batch of each (batch, size)
+and, for ``predict_pipelined``, group: the host copies the batch into the
+graph's input, replays and copies the detections out (the JAX package's
+jitted ``predict_batch`` and scanned ``predict_pipelined``).  On the CPU
+the same function runs eagerly.  The Detector casts, re-lays and BN-folds
+the model it is given, so it needs a model of its own (never the one being
+trained): ``set_params`` loads new weights into it in place.
 """
 from __future__ import annotations
 
@@ -16,6 +21,7 @@ import numpy as np
 import torch
 
 from ..ops.module import resolve_device
+from ..train.graphs import Graphs
 from .optimize import COMPUTE_DTYPES, optimize_for_inference
 
 
@@ -41,6 +47,8 @@ class Detector:
             mean, std = mean[::-1].copy(), std[::-1].copy()
         self.mean = torch.from_numpy(mean).to(self.device).view(1, 3, 1, 1)
         self.std = torch.from_numpy(std).to(self.device).view(1, 3, 1, 1)
+        self._graphs = {}   # group -> Graphs, all in one memory pool
+        self._pool = torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
 
     def set_params(self, state_dict) -> None:
         """Load new weights (the port's keys, fp32, any device), BN folded
@@ -72,17 +80,41 @@ class Detector:
             x = (x - self.mean) / self.std
         return x.to(self.compute_dtype)
 
+    def _predict(self, images: torch.Tensor, im_size: torch.Tensor, group: int) -> torch.Tensor:
+        """``group`` batches of [G*B,S,S,3] images in turn -> [G*B, K, 6]."""
+        if group == 1:
+            return self.model.predict(self.normalize(images), im_size)
+        ims, szs = images.chunk(group), im_size.chunk(group)
+        return torch.cat([self.model.predict(self.normalize(i), s) for i, s in zip(ims, szs)])
+
     @torch.no_grad()
+    def _run(self, pimages: np.ndarray, im_sizes: np.ndarray, group: int) -> np.ndarray:
+        images = torch.from_numpy(np.ascontiguousarray(pimages))
+        sizes = torch.from_numpy(np.ascontiguousarray(im_sizes, np.float32))
+        if self.device.type != "cuda":
+            return self._predict(images.to(self.device), sizes.to(self.device),
+                                 group).cpu().numpy()
+        if group not in self._graphs:
+            self._graphs[group] = Graphs(
+                lambda inp: {"det": self._predict(inp["image"], inp["im_size"], group)},
+                self.device, pool=self._pool, model=self.model)
+        # pinned, so the copies into the graph's inputs are asynchronous
+        out = self._graphs[group]({"image": images.pin_memory(), "im_size": sizes.pin_memory()})
+        return out["det"].cpu().numpy()
+
     def predict_batch(self, pimages: np.ndarray, im_sizes: np.ndarray) -> np.ndarray:
         """pimages [B,S,S,3] preprocessed; im_sizes [B,2] (h, w).
         Returns [B, keep_top_k, 6] numpy (label, score, x0, y0, x1, y1)."""
-        images = torch.from_numpy(np.ascontiguousarray(pimages))
-        if self.device.type == "cuda":
-            images = images.pin_memory()   # so the copy below is asynchronous
-        images = images.to(self.device, non_blocking=True)
-        sizes = torch.from_numpy(np.asarray(im_sizes, np.float32)).to(self.device)
-        out = self.model.predict(self.normalize(images), sizes)
-        return out.cpu().numpy()
+        return self._run(pimages, im_sizes, 1)
+
+    def predict_pipelined(self, pimages: np.ndarray, im_sizes: np.ndarray, *,
+                          group: int) -> np.ndarray:
+        """``group`` batches in one unit of work (one graph replay on a card):
+        pimages [G*B,S,S,3], im_sizes [G*B,2].  Returns [G*B, keep_top_k, 6],
+        each batch's rows as ``predict_batch`` gives them."""
+        if group < 1 or pimages.shape[0] % group:
+            raise ValueError(f"{pimages.shape[0]} images do not split into {group} batches")
+        return self._run(pimages, im_sizes, group)
 
     def detect_image(self, img_bgr: np.ndarray, draw_thresh: Optional[float] = None):
         """One BGR image -> (boxes [K,4] xyxy, scores [K], classes [K])

@@ -9,6 +9,12 @@ at import: the CPU tests import every module and have no nvcc.
 
 ``build_all`` starts one nvcc per source at once, so the build takes as
 long as the slowest file.
+
+Each kernel's launch wrapper is ``counted``: ``fn.launches`` counts the
+launches of its kernel and ``fn.captured`` the calls that a CUDA graph
+recorded instead (a capture launches nothing).  ``train/graphs.py`` adds a
+graph's recorded calls to ``launches`` at each replay, which is where those
+kernels launch.
 """
 from __future__ import annotations
 
@@ -18,7 +24,9 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Callable, Dict, List
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -31,6 +39,27 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 # library ``build_all`` returned; kept beside the library as
 # ``lib<name>-<hash>.ptxas.txt`` and read back when the library is cached
 PTXAS_REPORT: Dict[str, str] = {}
+
+
+# every counted launch wrapper, in the order the modules defined them
+COUNTED: List[Callable] = []
+
+
+def counted(fn: Callable) -> Callable:
+    """Give the launch wrapper ``fn`` its counts (see the module docstring)."""
+    fn.launches = 0
+    fn.captured = 0
+    COUNTED.append(fn)
+    return fn
+
+
+def note_launch(fn: Callable) -> None:
+    """Called by ``fn`` where it hands its kernel to the current stream: a
+    launch, or under a CUDA graph's capture a call the graph records."""
+    if torch.cuda.is_current_stream_capturing():
+        fn.captured += 1
+    else:
+        fn.launches += 1
 
 
 def nvcc_path() -> str:

@@ -21,7 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .deform_conv import deform_conv2d, needs_grad
-from .module import BatchNorm, ParamPolicy, flatten_tree, unflatten_tree
+from .module import BatchNorm, ParamPolicy, flatten_tree, store_cached, unflatten_tree
 
 
 def apply_act(x: torch.Tensor, act: Optional[str]) -> torch.Tensor:
@@ -135,9 +135,21 @@ class ConvNormAct(nn.Module):
         w = self.conv.dcn_weight
         key = (w.data_ptr(), w._version, w.dtype, w.device)
         if key != self._packed_key:
-            self._packed = pack_dcn_weight(w.detach())
+            old = None if self._packed is None else (self._packed,)
+            self._packed = store_cached(old, (pack_dcn_weight(w.detach()),))[0]
             self._packed_key = key
         return self._packed
+
+    def refresh_cache(self) -> None:
+        """Re-pack the cached DCN weight, and the folded stem when this is
+        the module that holds it, into their existing tensors."""
+        if self._packed is not None:
+            self.packed_dcn_weight()
+        stem = getattr(self, "_stem_cache", None)
+        if stem is not None:
+            from .stem import stem_params
+
+            stem_params(stem[3])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         c = self.conv

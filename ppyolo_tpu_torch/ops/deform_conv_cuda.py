@@ -5,9 +5,9 @@ K1, ``dcn_fwd`` (``csrc/dcn_fwd.cu``), replaces
 version is ``ops/deform_conv.py::deform_conv2d_plain``.  K3, ``dcn_bwd``
 (``csrc/dcn_bwd.cu``), replaces ``_dcn_bwd_pallas``'s kernel; its plain
 version is ``ops/deform_conv.py::dcn_bwd_plain``.  ``dcn_fwd.launches``
-and ``dcn_bwd.launches`` count the wrappers' launching calls (one call of
-``dcn_bwd`` launches K3's two kernels, the per-(pixel, tap) pass and the
-gather that sums dx).
+and ``dcn_bwd.launches`` count the kernels' launches (``_build.counted``;
+one launch of ``dcn_bwd`` runs K3's per-(pixel, tap) pass and the gather
+that sums dx).
 """
 from __future__ import annotations
 
@@ -21,11 +21,7 @@ from . import _build
 from .deform_conv import out_size
 
 _ARGTYPES = {"dcn_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12 + [ctypes.c_void_p],
-             "dcn_bwd": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 12 + [ctypes.c_void_p]}
-# entries of a dx pixel's bin in K3 (dcn_bwd.cu): corners beyond it in one
-# pixel go to an overflow list (at stage 5 a pixel takes ~9 at 38x38/s2 and
-# ~36 at 19x19/s1 on average)
-BIN_CAP = 64
+             "dcn_bwd": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 11 + [ctypes.c_void_p]}
 
 
 @functools.lru_cache(maxsize=None)
@@ -34,6 +30,15 @@ def _fn(name: str):
     fn.argtypes = _ARGTYPES[name]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _bin_cap() -> int:
+    """The entries of a dx pixel's bin in K3 (a pixel with more corners
+    than that takes a slower, equally exact path)."""
+    fn = _build.load("dcn_bwd").dcn_bwd_bin_cap
+    fn.restype = ctypes.c_int
+    return fn()
 
 
 def pack_dcn_weight(weight: torch.Tensor) -> torch.Tensor:
@@ -45,6 +50,7 @@ def pack_dcn_weight(weight: torch.Tensor) -> torch.Tensor:
             .to(torch.bfloat16).contiguous())
 
 
+@_build.counted
 def dcn_fwd(x: torch.Tensor, om: torch.Tensor, packed_weight: torch.Tensor,
             bias: Optional[torch.Tensor], *, ksize: Tuple[int, int],
             stride: int, padding: int) -> torch.Tensor:
@@ -90,7 +96,7 @@ def dcn_fwd(x: torch.Tensor, om: torch.Tensor, packed_weight: torch.Tensor,
     y = torch.empty((N, out_c, oH, oW), dtype=x.dtype, device=x.device,
                     memory_format=torch.channels_last)
     launch = _fn("dcn_fwd")
-    dcn_fwd.launches += 1
+    _build.note_launch(dcn_fwd)
     err = launch(
         xh.data_ptr(), omh.data_ptr(), packed_weight.data_ptr(),
         0 if bias is None else bias.data_ptr(), y.data_ptr(),
@@ -102,9 +108,8 @@ def dcn_fwd(x: torch.Tensor, om: torch.Tensor, packed_weight: torch.Tensor,
     return y
 
 
-dcn_fwd.launches = 0
 
-
+@_build.counted
 def dcn_bwd(x: torch.Tensor, om: torch.Tensor, dm: torch.Tensor, *,
             ksize: Tuple[int, int], stride: int, padding: int):
     """K3 on the card, the per-(pixel, tap) part of the DCNv2 backward.
@@ -112,8 +117,9 @@ def dcn_bwd(x: torch.Tensor, om: torch.Tensor, dm: torch.Tensor, *,
     in channels_last memory; dm [N*oH*oW, k2*C] bf16 (``g @ W^T``).
     Returns dx fp32 [N,C,H,W], d_om in om's dtype (both channels_last) and
     cols [N*oH*oW, k2*C] bf16, as ``dcn_bwd_plain``.  Beside the outputs
-    it allocates the dx pixels' bins (``BIN_CAP`` entries each), their
-    zeroed counts and an overflow list, which K3's gather reads."""
+    it allocates K3's entries (a dx pixel and a weight for each of the
+    N*oH*oW*k2*4 corners) and the dx pixels' bins of (entry, weight) pairs
+    with their zeroed counts."""
     if x.device.type != "cuda":
         raise ValueError(f"dcn_bwd needs CUDA tensors, got {x.device}")
     kh, kw = ksize
@@ -141,22 +147,22 @@ def dcn_bwd(x: torch.Tensor, om: torch.Tensor, dm: torch.Tensor, *,
         raise ValueError("dcn_bwd: x and dm must be 16-byte aligned")
     cl = torch.channels_last
     dx = torch.empty((N, C, H, W), dtype=torch.float32, device=x.device, memory_format=cl)
-    cnt = torch.zeros(N * H * W + 1, dtype=torch.int32, device=x.device)
     d_om = torch.empty((N, 3 * k2, oH, oW), dtype=om.dtype, device=x.device,
                        memory_format=cl)
     cols = torch.empty_like(dm)
-    bins = torch.empty((N * H * W * BIN_CAP, 2), dtype=torch.int32, device=x.device)
-    over = torch.empty((N * oH * oW * k2 * 4, 4), dtype=torch.int32, device=x.device)
+    n_entries = N * oH * oW * k2 * 4
+    keys = torch.empty(n_entries, dtype=torch.int32, device=x.device)
+    wts = torch.empty(n_entries, dtype=torch.float32, device=x.device)
+    cnt = torch.zeros(N * H * W, dtype=torch.int32, device=x.device)
+    bins = torch.empty(N * H * W * _bin_cap() * 2, dtype=torch.int32, device=x.device)
     launch = _fn("dcn_bwd")
-    dcn_bwd.launches += 1
+    _build.note_launch(dcn_bwd)
     err = launch(xh.data_ptr(), omh.data_ptr(), dm.data_ptr(), dx.data_ptr(),
                  d_om.data_ptr(), cols.data_ptr(), cnt.data_ptr(), bins.data_ptr(),
-                 over.data_ptr(), BIN_CAP,
-                 int(om.dtype == torch.float32), N, H, W, C, oH, oW, kh, kw, stride, padding,
+                 keys.data_ptr(), wts.data_ptr(), int(om.dtype == torch.float32), N, H, W, C,
+                 oH, oW, kh, kw, stride, padding,
                  torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"dcn_bwd kernel launch failed: cudaError {err}")
     return dx, d_om, cols
 
-
-dcn_bwd.launches = 0

@@ -10,8 +10,9 @@ those paths; ``BatchNorm`` registers no ``num_batches_tracked``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -51,6 +52,47 @@ def unflatten_tree(flat: Dict[str, Any]) -> Dict[str, Any]:
             node = node.setdefault(seg, {})
         node[segs[-1]] = v
     return tree
+
+
+_CONSTANTS: Dict[tuple, torch.Tensor] = {}
+
+
+def device_constant(values, dtype: torch.dtype, device) -> torch.Tensor:
+    """``torch.tensor(values, dtype=dtype, device=device)``, made once per
+    (values, dtype, device) and kept, so the op that reads it copies
+    nothing from the host and a CUDA graph can capture it."""
+    arr = np.asarray(values)
+    key = (arr.shape, str(arr.dtype), arr.tobytes(), dtype, torch.device(device))
+    t = _CONSTANTS.get(key)
+    if t is None:
+        t = _CONSTANTS[key] = torch.tensor(arr, dtype=dtype, device=device)
+    return t
+
+
+def store_cached(old: Optional[Sequence[torch.Tensor]],
+                 new: Sequence[torch.Tensor]) -> Sequence[torch.Tensor]:
+    """A cache's new values, written into its old tensors where every shape,
+    dtype and device agrees (so a CUDA graph that captured a read of the
+    old tensors reads the new values), else the new tensors."""
+    if old is not None and len(old) == len(new) and all(
+            o.shape == n.shape and o.dtype == n.dtype and o.device == n.device
+            for o, n in zip(old, new)):
+        with torch.no_grad():
+            for o, n in zip(old, new):
+                o.copy_(n)
+        return old
+    return new
+
+
+def refresh_caches(model: nn.Module) -> None:
+    """Recompute every cache of ``model`` derived from its parameters (BN's
+    eval affine, the DCN's packed weight, the folded and packed stem) into
+    its existing tensors, where they are stale.  A CUDA graph's replay reads
+    the caches without checking them, so ``train/graphs.py`` calls this
+    before a replay when a parameter or buffer was written since the last."""
+    for m in model.modules():
+        if m is not model and hasattr(m, "refresh_cache"):
+            m.refresh_cache()
 
 
 def resolve_device(device: Optional[str | torch.device] = None) -> torch.device:
@@ -100,18 +142,27 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
             return self._forward_train(x)
+        k, b = self.eval_affine(x.dtype)
+        return torch.addcmul(b, x, k)
+
+    def eval_affine(self, dtype: torch.dtype):
+        """(k, b) of the eval pass in ``dtype``, each [1, C, 1, 1]."""
         ts = (self.weight, self.bias, self.running_mean, self.running_var)
-        key = (x.dtype,) + tuple((t.data_ptr(), t._version) for t in ts)
+        key = (dtype,) + tuple((t.data_ptr(), t._version) for t in ts)
         if key != self._affine_key:
-            acc = torch.promote_types(x.dtype, torch.float32)
+            acc = torch.promote_types(dtype, torch.float32)
             with torch.no_grad():
                 k = self.weight.to(acc) * torch.rsqrt(self.running_var.to(acc) + BN_EPS)
                 b = self.bias.to(acc) - self.running_mean.to(acc) * k
             shape = (1, -1, 1, 1)
-            self._affine = (k.to(x.dtype).view(shape), b.to(x.dtype).view(shape))
+            self._affine = store_cached(self._affine,
+                                        (k.to(dtype).view(shape), b.to(dtype).view(shape)))
             self._affine_key = key
-        k, b = self._affine
-        return torch.addcmul(b, x, k)
+        return self._affine
+
+    def refresh_cache(self) -> None:
+        if self._affine is not None:
+            self.eval_affine(self._affine[0].dtype)
 
     def _forward_train(self, x: torch.Tensor) -> torch.Tensor:
         acc = torch.promote_types(x.dtype, torch.float32)

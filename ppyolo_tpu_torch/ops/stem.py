@@ -26,7 +26,7 @@ import torch.nn.functional as F
 
 from . import _build
 from .blocks import max_pool2d
-from .module import BN_EPS
+from .module import BN_EPS, store_cached
 from .strided_conv import pack_conv_s2_weight
 
 STEM_SHAPES = [(3, 32, 2), (32, 32, 1), (32, 64, 1)]  # (cin, cout, stride)
@@ -97,6 +97,7 @@ def _lib():
     return lib
 
 
+@_build.counted
 def fused_stem(x, w1, b1, w2, b2, w3, b3, *, packed=None) -> torch.Tensor:
     """The fused stem on x's device: the plain version for a CPU tensor, the
     Hopper kernel for a CUDA tensor (bf16 only; it raises otherwise).
@@ -129,7 +130,7 @@ def fused_stem(x, w1, b1, w2, b2, w3, b3, *, packed=None) -> torch.Tensor:
     y = torch.empty((N, 64, s4h, s4w), dtype=x.dtype, device=x.device,
                     memory_format=torch.channels_last)
     lib = _lib()
-    fused_stem.launches += 1
+    _build.note_launch(fused_stem)
     err = lib.fused_stem_launch(
         xh.data_ptr(), *(t.data_ptr() for t in packed), y.data_ptr(),
         N, H, W, torch.cuda.current_stream(x.device).cuda_stream)
@@ -137,8 +138,6 @@ def fused_stem(x, w1, b1, w2, b2, w3, b3, *, packed=None) -> torch.Tensor:
         raise RuntimeError(f"fused_stem kernel launch failed: cudaError {err}")
     return y
 
-
-fused_stem.launches = 0
 
 
 def stem_params(mods: Sequence):
@@ -152,7 +151,11 @@ def stem_params(mods: Sequence):
     if cache is None or cache[0] != key:
         with torch.no_grad():
             folded = [t for m in mods for t in fold_eval_bn(m)]
-            cache = (key, folded, pack_stem_params(*folded))
+            packed = pack_stem_params(*folded)
+        if cache is not None:   # into the tensors a CUDA graph may read
+            folded = list(store_cached(cache[1], folded))
+            packed = tuple(store_cached(cache[2], packed))
+        cache = (key, folded, packed, tuple(mods))
         mods[0]._stem_cache = cache
     return cache[1], cache[2]
 

@@ -98,6 +98,7 @@ def _launch():
     return fn
 
 
+@_build.counted
 def conv_s2(x: torch.Tensor, w: torch.Tensor, packed: torch.Tensor = None) -> torch.Tensor:
     """The strided conv on x's device: the plain version for a CPU tensor,
     K4 for a CUDA tensor (C and Co multiples of 8; it raises otherwise).
@@ -132,7 +133,7 @@ def conv_s2(x: torch.Tensor, w: torch.Tensor, packed: torch.Tensor = None) -> to
     if xh.data_ptr() % 16 or packed.data_ptr() % 16:
         raise ValueError("conv_s2: x and the packed weight must be 16-byte aligned")
     launch = _launch()
-    conv_s2.launches += 1
+    _build.note_launch(conv_s2)
     err = launch(xh.data_ptr(), packed.data_ptr(), y.data_ptr(),
                  int(x.dtype == torch.float32), n, h, h, c, co,
                  torch.cuda.current_stream(x.device).cuda_stream)
@@ -140,5 +141,3 @@ def conv_s2(x: torch.Tensor, w: torch.Tensor, packed: torch.Tensor = None) -> to
         raise RuntimeError(f"conv_s2 kernel launch failed: cudaError {err}")
     return y
 
-
-conv_s2.launches = 0

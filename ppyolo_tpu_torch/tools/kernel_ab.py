@@ -9,7 +9,7 @@ of the plain output's max-abs; K3: dx, d_om and cols), then timed with CUDA
 events over 20 warm launches in the order earlier, current, current,
 earlier; K1 and K3 inside a CUDA graph of the 20 launches (``graph_ms``),
 so that their wrappers' host work is not what is timed.  K3's earlier call
-zeroes its dx first, as the current wrapper zeroes dx and its bin counts.
+zeroes its dx first (its first form added into dx).
 
 The earlier version is given as a directory of CUDA sources with the C
 interface of the kernels that preceded each redesign:
@@ -24,10 +24,17 @@ interface of the kernels that preceded each redesign:
 
 e.g. an earlier commit's ``ppyolo_tpu_torch/csrc`` unpacked with
 ``git archive`` (the wmma K2/K4 before PR 4's commit, the first K1/K3 at
-it).  ``--kernels`` picks which of the four to compare.  The earlier
+it).  K3 had two later forms, named by ``--dcn-bwd-form``: ``binned``
+(commit ``0c722e4``; its dx pixels' bins in slot order) takes
+``cnt, bins, over, cap`` after ``cols``, cnt zeroed by the caller, and
+``sorted`` (a CUB radix sort of its dx entries) takes ``keys, vals, wts,
+keys_out, vals_out, temp, temp_bytes`` there, temp_bytes from its
+``dcn_bwd_sort_bytes(N, H, W, oH, oW, k2)``.  ``--kernels`` picks which of
+the four to compare.  The earlier
 sources are built with the same nvcc flags into ``build/kernels/earlier/``.
 
 Usage: python -m ppyolo_tpu_torch.tools.kernel_ab --earlier DIR [--kernels dcn_fwd,dcn_bwd]
+       [--dcn-bwd-form first|binned|sorted]
 """
 from __future__ import annotations
 
@@ -51,14 +58,22 @@ _EARLIER_ARGTYPES = {
     "conv_s2": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
     "fused_stem": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
     "dcn_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12 + [ctypes.c_void_p],
-    "dcn_bwd": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [ctypes.c_void_p],
 }
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_EARLIER_DCN_BWD = {   # K3's earlier C interfaces, by form
+    "first": [_P] * 6 + [_I] * 11 + [_P],
+    "binned": [_P] * 9 + [_I] * 12 + [_P],
+    "sorted": [_P] * 12 + [_I] * 12 + [_P],
+}
+_EARLIER_ARGTYPES["dcn_bwd"] = _EARLIER_DCN_BWD["first"]
+BINNED_CAP = 64   # the binned form's entries per dx pixel
 DCN_SHAPES = ((38, 2), (19, 1))   # stage5_0 once, stage5_1 / 5_2 twice a batch; C = 512
 
 
-def build_earlier(src_dir: Path, names) -> dict:
+def build_earlier(src_dir: Path, names, dcn_bwd_form: str = "first") -> dict:
     """Compile the earlier ``<name>.cu`` of each name, in parallel; their
-    launch functions."""
+    launch functions (K3's in the C interface of ``dcn_bwd_form``, with
+    its library as ``.lib``)."""
     out = _build.BUILD_DIR / "earlier"
     out.mkdir(parents=True, exist_ok=True)
     procs = {name: subprocess.Popen(
@@ -70,10 +85,12 @@ def build_earlier(src_dir: Path, names) -> dict:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc {src_dir / name}.cu failed:\n{log}")
-        fn = getattr(ctypes.CDLL(str(out / f"lib{name}.so")), f"{name}_launch")
-        fn.argtypes = _EARLIER_ARGTYPES[name]
+        lib = ctypes.CDLL(str(out / f"lib{name}.so"))
+        fn = getattr(lib, f"{name}_launch")
+        fn.argtypes = (_EARLIER_DCN_BWD[dcn_bwd_form] if name == "dcn_bwd"
+                       else _EARLIER_ARGTYPES[name])
         fn.restype = ctypes.c_int
-        fns[name] = fn
+        fns[name] = (fn, lib) if name == "dcn_bwd" else fn
     return fns
 
 
@@ -137,16 +154,20 @@ def main(argv=None) -> list:
                     help="directory with the earlier sources of the kernels compared")
     ap.add_argument("--kernels", default=",".join(_EARLIER_ARGTYPES),
                     help="comma-separated subset of " + ",".join(_EARLIER_ARGTYPES))
+    ap.add_argument("--dcn-bwd-form", default="first", choices=sorted(_EARLIER_DCN_BWD),
+                    help="the C interface of the earlier dcn_bwd.cu")
     a = ap.parse_args(argv)
     names = a.kernels.split(",")
     if not set(names) <= set(_EARLIER_ARGTYPES):
         raise ValueError(f"--kernels {a.kernels}: not a subset of {list(_EARLIER_ARGTYPES)}")
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA card: the A/B runs on the card")
-    earlier = build_earlier(a.earlier, names)
+    earlier = build_earlier(a.earlier, names, a.dcn_bwd_form)
     rows = []
     for name in names:
-        rows += _AB[name](earlier[name], torch.Generator().manual_seed(0))
+        gen = torch.Generator().manual_seed(0)
+        rows += (ab_dcn_bwd(*earlier[name], gen, a.dcn_bwd_form) if name == "dcn_bwd"
+                 else _AB[name](earlier[name], gen))
     dev_name = torch.cuda.get_device_name(0)
     for r in rows:
         print(json.dumps({**r, "device": dev_name}), flush=True)
@@ -243,7 +264,27 @@ def ab_dcn_fwd(earlier, gen) -> list:
     return rows
 
 
-def ab_dcn_bwd(earlier, gen) -> list:
+def _dcn_bwd_scratch(lib, form: str, h: int, oh: int, dev) -> list:
+    """The arguments that K3's earlier ``form`` takes after ``cols``, and
+    the tensor its caller zeroes before a launch (or None)."""
+    pixels, entries = BATCH * h * h, BATCH * oh * oh * 9 * 4
+    if form == "first":
+        return [], None
+    if form == "binned":
+        cnt = torch.zeros(pixels + 1, dtype=torch.int32, device=dev)
+        bins = torch.empty(pixels * BINNED_CAP * 2, dtype=torch.int32, device=dev)
+        over = torch.empty(entries * 4, dtype=torch.int32, device=dev)
+        return [cnt, bins, over, BINNED_CAP], cnt
+    lib.dcn_bwd_sort_bytes.restype = ctypes.c_int
+    temp_bytes = lib.dcn_bwd_sort_bytes(BATCH, h, h, oh, oh, 9)
+    if temp_bytes < 0:
+        raise RuntimeError(f"earlier dcn_bwd_sort_bytes: cudaError {-temp_bytes}")
+    ents = [torch.empty(entries, dtype=torch.int32, device=dev) for _ in range(5)]
+    temp = torch.empty(max(temp_bytes, 1), dtype=torch.uint8, device=dev)
+    return ents + [temp, temp_bytes], None
+
+
+def ab_dcn_bwd(earlier, lib, gen, form: str = "first") -> list:
     rows = []
     for h, stride in DCN_SHAPES:
         x, w, om, g, oh = _dcn_inputs(gen, h, stride)
@@ -251,10 +292,16 @@ def ab_dcn_bwd(earlier, gen) -> list:
         dm = g.permute(0, 2, 3, 1).reshape(-1, c) @ pack_dcn_weight(w)
         dx = torch.empty(BATCH, h, h, c, dtype=torch.float32, device=x.device)
         d_om, cols = torch.empty_like(om), torch.empty_like(dm)
+        scratch, zeroed = _dcn_bwd_scratch(lib, form, h, oh, x.device)
         ptrs = [t.data_ptr() for t in (x, om, dm, dx, d_om, cols)]
+        ptrs += [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in scratch]
+
+        if form == "first":
+            zeroed = dx   # the first form adds into dx
 
         def run_e():
-            dx.zero_()
+            if zeroed is not None:
+                zeroed.zero_()
             return earlier(*ptrs, 0, BATCH, h, h, c, oh, oh, 3, 3, stride, 1, _stream())
 
         run_c = lambda: dcn_bwd(x, om, dm, ksize=(3, 3), stride=stride, padding=1)
@@ -266,13 +313,13 @@ def ab_dcn_bwd(earlier, gen) -> list:
         for side, outs in (("earlier", (dx.permute(0, 3, 1, 2), d_om, cols)), ("current", got)):
             errs[side] = max(check(f"{side} dcn_bwd {h}x{h}/s{stride} {k}", a, b)
                              for k, a, b in zip(("dx", "d_om", "cols"), outs, want))
+        same = all(torch.equal(a, b) for a, b in zip((dx.permute(0, 3, 1, 2), d_om, cols), got))
         rows.append({**ab(f"dcn_bwd {h}x{h}/s{stride}", run_e, run_c, graph_ms),
-                     "max_abs_err": errs})
+                     "earlier_form": form, "max_abs_err": errs, "bit_equal": same})
     return rows
 
 
-_AB = {"conv_s2": ab_conv_s2, "fused_stem": ab_fused_stem, "dcn_fwd": ab_dcn_fwd,
-       "dcn_bwd": ab_dcn_bwd}
+_AB = {"conv_s2": ab_conv_s2, "fused_stem": ab_fused_stem, "dcn_fwd": ab_dcn_fwd}
 
 
 if __name__ == "__main__":

@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.iou import pairwise_iou
+from ..ops.module import device_constant
 
 _EPS_CAP = 20.72326583694641  # -log(1e-9)
 
@@ -170,8 +171,8 @@ class YOLOv3Loss:
 
         for i, (output, target) in enumerate(zip(outputs, targets)):
             downsample = self.downsample[i]
-            anchors_wh = torch.tensor(mask_anchors[i], dtype=torch.float32,
-                                      device=output.device).reshape(-1, 2)
+            anchors_wh = device_constant(mask_anchors[i], torch.float32,
+                                         output.device).reshape(-1, 2)
             an = anchors_wh.shape[0]
             n, s = output.shape[:2]
             scale_x_y = (self.scale_x_y if not isinstance(self.scale_x_y, (list, tuple))

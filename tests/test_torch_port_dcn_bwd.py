@@ -190,23 +190,31 @@ def test_occupancy_exports_take_what_chip_smoke_passes(name, nargs):
     """Each library exports ``<name>*_blocks_per_sm``, which chip_smoke calls
     through ctypes with Python ints and no argtypes: only int parameters, as
     many as it passes (K3's names one of its two kernels).  The library
-    exports nothing else besides its launch."""
+    exports nothing else besides its launch, and K3's the size of its dx
+    pixels' bins (no parameters)."""
     fns = _extern_c(name)
     occ = [f for f in fns if f.endswith("_blocks_per_sm")]
-    assert len(occ) == 1 and set(fns) == {occ[0], f"{name}_launch"}
+    extra = {"dcn_bwd": {"dcn_bwd_bin_cap"}}.get(name, set())
+    assert len(occ) == 1 and set(fns) == {occ[0], f"{name}_launch"} | extra
+    for f in extra:
+        assert fns[f].strip() in ("", "void")
     params = [p.strip() for p in fns[occ[0]].split(",") if p.strip()]
     assert len(params) == nargs and all(p.split()[0] == "int" for p in params)
 
 
 def test_kernel_ab_earlier_dcn_interfaces():
-    """kernel_ab binds PR 4's K1 with today's C interface (only the weight's
-    layout changed) and PR 4's K3 without the bins (three pointers and a
-    capacity)."""
+    """kernel_ab binds the first K1 with today's C interface (only the
+    weight's layout changed), the first K3 without the bins and entries
+    (four pointers), and K3's binned and sorted forms with theirs."""
     from ppyolo_tpu_torch.tools import kernel_ab
 
     cur = deform_conv_cuda._ARGTYPES
     assert kernel_ab._EARLIER_ARGTYPES["dcn_fwd"] == cur["dcn_fwd"]
-    assert kernel_ab._EARLIER_ARGTYPES["dcn_bwd"] == cur["dcn_bwd"][:6] + cur["dcn_bwd"][10:]
+    forms = kernel_ab._EARLIER_DCN_BWD
+    assert forms["first"] == cur["dcn_bwd"][:6] + cur["dcn_bwd"][10:]
+    assert forms["binned"] == cur["dcn_bwd"][:9] + cur["dcn_bwd"][10:11] + cur["dcn_bwd"][10:]
+    assert forms["sorted"] == cur["dcn_bwd"][:6] + [ctypes.c_void_p] * 6 + [ctypes.c_int] \
+        + cur["dcn_bwd"][10:]
     with pytest.raises(ValueError, match="not a subset"):
         kernel_ab.main(["--earlier", ".", "--kernels", "dcn_fwd,dcn_bwd2"])
 

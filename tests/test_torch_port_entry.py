@@ -276,33 +276,24 @@ def test_run_eval_returns_stats_and_draws(dataset, trained, tmp_path):
     np.testing.assert_array_equal(again, stats)
 
 
-@pytest.mark.parametrize("case", ["ndev", "scan_steps", "orbax", "warmup_shapes", "pt_weights",
-                                  "eval_ndev", "eval_scan_group", "eval_pt_weights",
-                                  "distributed_eval", "cli_ndev", "cli_scan_steps"])
+@pytest.mark.parametrize("case", ["ndev", "orbax", "pt_weights", "eval_ndev", "eval_pt_weights",
+                                  "distributed_eval", "cli_ndev"])
 def test_inputs_not_ported_raise(dataset, tmp_path, case):
     cfg = entry_cfg(dataset)
     wdir = str(tmp_path)
     calls = {
         "ndev": lambda: train_entry.run_training(cfg, weights_dir=wdir, device="cpu", ndev=2),
-        "scan_steps": lambda: train_entry.run_training(
-            entry_cfg(dataset, scan_steps=4), weights_dir=wdir, device="cpu"),
         "orbax": lambda: train_entry.run_training(
             entry_cfg(dataset, ckpt_backend="orbax"), weights_dir=wdir, device="cpu"),
-        "warmup_shapes": lambda: train_entry.run_training(
-            entry_cfg(dataset, warmup_shapes=True), weights_dir=wdir, device="cpu"),
         "pt_weights": lambda: train_entry.run_training(
             entry_cfg(dataset, model_path="ppyolo_2x.pt"), weights_dir=wdir, device="cpu"),
         "eval_ndev": lambda: eval_entry.run_eval(cfg, device="cpu", ndev=2, result_dir=wdir),
-        "eval_scan_group": lambda: eval_entry.run_eval(cfg, device="cpu", scan_group=2,
-                                                       result_dir=wdir),
         "eval_pt_weights": lambda: eval_entry.run_eval(
             _with_eval_model(cfg, "ppyolo_2x.pt"), device="cpu", result_dir=wdir),
         "distributed_eval": lambda: coco_eval(None, [], "", "", 1, result_dir=wdir,
                                               distributed=True),
         "cli_ndev": lambda: train_entry.main(["--config", "1", "--use_gpu", "false",
                                               "--ndev", "2"]),
-        "cli_scan_steps": lambda: train_entry.main(["--config", "1", "--use_gpu", "false",
-                                                    "--scan_steps", "2"]),
     }
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         calls[case]()

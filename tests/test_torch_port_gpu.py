@@ -207,6 +207,32 @@ def test_dcn_backward_kernel_bins(shape, offsets):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("offsets", ["near", "far"])
+def test_dcn_backward_kernel_is_deterministic(offsets):
+    """K3 twice on the same inputs at stage5_1's shape (b8, 19x19, C 512):
+    dx, d_om and cols the same bits (the dx sum runs in item order, not in
+    the order atomics hand out places), with offsets near their taps and
+    clamped far onto the edges (thousands of corners on one dx pixel)."""
+    from ppyolo_tpu_torch.ops.deform_conv_cuda import dcn_bwd
+
+    dev = _cuda_or_skip()
+    x, wt, om, g = _bwd_inputs(14, 8, 19, 19, 512, 512, 1, torch.bfloat16, dev)
+    r = np.random.RandomState(15)
+    shape = (8, 18, 19, 19)
+    off = (r.uniform(-0.99, 0.99, shape) if offsets == "near"
+           else r.choice([-1.0, 1.0], shape) * r.uniform(4.0, 57.0, shape))
+    om = om.clone()
+    om[:, :18] = torch.from_numpy(off).to(dev, om.dtype)
+    dm = (g.permute(0, 2, 3, 1).reshape(-1, 512).float()
+          @ wt.permute(0, 2, 3, 1).reshape(512, -1)).to(torch.bfloat16)
+    first = dcn_bwd(x, om, dm, ksize=(3, 3), stride=1, padding=1)
+    for _ in range(3):
+        again = dcn_bwd(x, om, dm, ksize=(3, 3), stride=1, padding=1)
+        for name, a, b in zip(("dx", "d_om", "cols"), again, first):
+            assert torch.equal(a, b), name
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("stride", [1, 2])
 def test_dcn_function_grads_match_autograd_of_plain(stride):
     """The card's DCN under autograd (K1 forward, K3 backward) against
@@ -393,8 +419,13 @@ def _mini2x_cfg():
 @pytest.mark.gpu
 def test_entry_two_steps_on_the_card_with_launch_counts(tmp_path):
     """Two bf16 steps of the training entry at 96 px on a synthetic COCO
-    set, a checkpoint and an eval at step 2: every DCN launches K1 and K3
-    once a step, and K1 once and K2 once an eval batch."""
+    set, a checkpoint and an eval at step 2.  The steps and the eval
+    batches are CUDA graph replays, each graph captured after one eager
+    warm-up run, and the counters count launches, the replays' included:
+    every DCN launches K1 and K3 three times for the one training size (the
+    warm-up run and 2 steps) and K1 three times, as K2, for the eval of
+    the 4 images in batches of 2 (the warm-up run and 2 batches); one call
+    of each is recorded per graph."""
     import json
 
     from ppyolo_tpu_torch.data.synthetic import make_synthetic_coco
@@ -416,14 +447,158 @@ def test_entry_two_steps_on_the_card_with_launch_counts(tmp_path):
     cfg.eval_cfg = dict(cfg.eval_cfg, target_size=96, eval_batch_size=2)
     n_dcn = sum(m.use_dcn for m in PPYOLO.from_config(cfg).modules() if isinstance(m, ConvNormAct))
     assert n_dcn > 0
-    counts = (dcn_fwd.launches, dcn_bwd.launches, fused_stem.launches)
+    wrappers = (dcn_fwd, dcn_bwd, fused_stem)
+    counts = [(f.launches, f.captured) for f in wrappers]
     state = run_training(cfg, weights_dir=str(tmp_path / "w"))
     torch.cuda.synchronize()
-    got = (dcn_fwd.launches - counts[0], dcn_bwd.launches - counts[1],
-           fused_stem.launches - counts[2])
+    got = [(f.launches - a, f.captured - b) for f, (a, b) in zip(wrappers, counts)]
     assert state.step == 2
-    assert got == (2 * n_dcn + 2 * n_dcn, 2 * n_dcn, 2)   # 2 steps, 2 eval batches
+    assert got == [(3 * n_dcn + 3 * n_dcn, n_dcn + n_dcn), (3 * n_dcn, n_dcn), (3, 1)]
     rows = [json.loads(line) for line in open(tmp_path / "w" / "metrics.jsonl")]
     assert [r["iter"] for r in rows if "total_loss" in r] == [1, 2]
     assert all(np.isfinite(r["total_loss"]) for r in rows if "total_loss" in r)
     assert os.path.exists(tmp_path / "w" / "last_state.npz")
+
+
+def _gpu_batch(seed, batch, size, num_classes=2, n_gt=4):
+    r = np.random.RandomState(seed)
+    gt_bbox = np.zeros((batch, 50, 4), np.float32)
+    gt_bbox[:, :n_gt, :2] = r.uniform(0.2, 0.8, (batch, n_gt, 2))
+    gt_bbox[:, :n_gt, 2:] = r.uniform(0.05, 0.5, (batch, n_gt, 2))
+    gt_score = np.zeros((batch, 50), np.float32)
+    gt_score[:, :n_gt] = 1.0
+    b = {"image": r.randint(0, 256, (batch, size, size, 3)).astype(np.uint8),
+         "gt_bbox": gt_bbox, "gt_class": r.randint(0, num_classes, (batch, 50)).astype(np.int32),
+         "gt_score": gt_score}
+    return {k: torch.from_numpy(v).cuda() for k, v in b.items()}
+
+
+def _train_setup(seed=0):
+    from ppyolo_tpu_torch.models import PPYOLO
+    from ppyolo_tpu_torch.train.train_step import init_train_state, make_train_step
+
+    cfg = _mini2x_cfg()
+    cfg.head = dict(cfg.head, drop_block=True)
+    cfg.use_ema = True
+    model = PPYOLO.from_config(cfg).init_parameters(torch.Generator().manual_seed(seed))
+    model.to(device="cuda", memory_format=torch.channels_last)
+    state = init_train_state(model, cfg)
+    step = make_train_step(model, cfg, compute_dtype=torch.bfloat16)
+    return cfg, model, state, step, torch.Generator(device="cuda").manual_seed(3)
+
+
+@pytest.mark.gpu
+def test_graphed_train_steps_are_bitwise_the_eager_steps():
+    """Three bf16 steps (K1 and K3 inside, DropBlock on) replayed from a
+    CUDA graph equal three eager steps from the same state and generator,
+    bit for bit: losses, params, BN statistics, momentum, EMA, the step and
+    the generator; the counters count the warm-up run's launches and each
+    replay's, and the capture's calls apart."""
+    from ppyolo_tpu_torch.ops.deform_conv_cuda import dcn_bwd, dcn_fwd
+    from ppyolo_tpu_torch.train.graphs import WARMUP_ITERS, GraphedStep
+
+    _cuda_or_skip()
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    batches = [_gpu_batch(40 + i, 2, 96) for i in range(3)]
+    _, _, eager, step, gen_e = _train_setup()
+    want = []
+    for b in batches:
+        _, losses = step(eager, b, gen_e)
+        want.append({k: v.clone() for k, v in losses.items()})
+    _, _, graphed, step_g, gen_g = _train_setup()
+    unit = GraphedStep(step_g, graphed, gen_g)
+    counts = [(f.launches, f.captured) for f in (dcn_fwd, dcn_bwd)]
+    for b, w in zip(batches, want):
+        _, losses = unit(graphed, b)
+        for k, v in w.items():
+            assert torch.equal(losses[k], v), k
+    got = [(f.launches - a, f.captured - c) for f, (a, c) in zip((dcn_fwd, dcn_bwd), counts)]
+    n_dcn = got[0][1]
+    assert n_dcn > 0 and got == [((WARMUP_ITERS + 3) * n_dcn, n_dcn)] * 2
+    assert len(unit.graphs.graphs) == 1
+    got, ref = graphed.tensors(), eager.tensors()
+    assert graphed.step == eager.step == 3 and set(got) == set(ref)
+    for k, v in ref.items():
+        assert torch.equal(got[k], v), k
+    assert torch.equal(gen_g.get_state(), gen_e.get_state())
+
+
+@pytest.mark.gpu
+def test_graph_capture_leaves_the_state_untouched():
+    """``prepare`` runs the step once on the live state and captures: every
+    tensor, the generator and both step counts are as before."""
+    from ppyolo_tpu_torch.train.graphs import GraphedStep
+
+    _cuda_or_skip()
+    _, _, state, step, gen = _train_setup()
+    unit = GraphedStep(step, state, gen)
+    before = {k: v.clone() for k, v in state.tensors().items()}
+    gen_before = gen.get_state()
+    unit.prepare(_gpu_batch(50, 2, 64))
+    unit.prepare(_gpu_batch(51, 2, 96))
+    assert len(unit.graphs.graphs) == 2 and state.step == 0
+    after = state.tensors()
+    for k, v in before.items():
+        assert torch.equal(after[k], v), k
+    assert torch.equal(gen.get_state(), gen_before)
+
+
+@pytest.mark.gpu
+def test_graphed_predicts_are_bitwise_eager_and_follow_set_params():
+    """bf16 serving of mini-2x at 96 px: the graphed ``predict_batch`` (K1
+    and K2 inside) equals the eager forward; after ``set_params`` with other
+    weights it equals the eager forward of those (the packed DCN weight,
+    the folded stem and the BN affines are refreshed in place); and
+    ``predict_pipelined`` of two batches equals two ``predict_batch``."""
+    from ppyolo_tpu_torch.eval.detector import Detector
+    from ppyolo_tpu_torch.models import PPYOLO
+
+    _cuda_or_skip()
+    cfg = _mini2x_cfg()
+    sds = [PPYOLO.from_config(cfg).init_parameters(torch.Generator().manual_seed(s)).state_dict()
+           for s in (0, 1)]
+    det = Detector(PPYOLO.from_config(cfg), sds[0], cfg, target_size=96, precision="bf16")
+    r = np.random.RandomState(2)
+    images = r.randint(0, 256, (4, 96, 96, 3)).astype(np.uint8)
+    sizes = np.array([[480, 640], [96, 96], [300, 200], [96, 128]], np.float32)
+
+    def eager(ims, szs):
+        with torch.no_grad():
+            x = det.normalize(torch.from_numpy(ims).cuda())
+            return det.model.predict(x, torch.from_numpy(szs).cuda()).cpu().numpy()
+
+    for sd in sds:
+        det.set_params(sd)
+        for lo in (0, 2):
+            got = det.predict_batch(images[lo:lo + 2], sizes[lo:lo + 2])
+            assert (got[..., 0] >= 0).any()
+            np.testing.assert_array_equal(got, eager(images[lo:lo + 2], sizes[lo:lo + 2]))
+        np.testing.assert_array_equal(
+            det.predict_pipelined(images, sizes, group=2),
+            np.concatenate([det.predict_batch(images[:2], sizes[:2]),
+                            det.predict_batch(images[2:], sizes[2:])]))
+    assert set(det._graphs) == {1, 2}
+
+
+@pytest.mark.gpu
+def test_graphed_predicts_follow_a_direct_load_into_the_model():
+    """Weights written into the Detector's model by hand (not through
+    ``set_params``) reach the graph too: before a replay the graphs see
+    the parameters' versions move and refresh the caches they read."""
+    from ppyolo_tpu_torch.eval.detector import Detector
+    from ppyolo_tpu_torch.eval.optimize import optimize_for_inference
+    from ppyolo_tpu_torch.models import PPYOLO
+
+    _cuda_or_skip()
+    cfg = _mini2x_cfg()
+    sds = [PPYOLO.from_config(cfg).init_parameters(torch.Generator().manual_seed(s)).state_dict()
+           for s in (0, 1)]
+    det = Detector(PPYOLO.from_config(cfg), sds[0], cfg, target_size=96, precision="bf16")
+    ref = Detector(PPYOLO.from_config(cfg), sds[1], cfg, target_size=96, precision="bf16")
+    images = np.random.RandomState(3).randint(0, 256, (2, 96, 96, 3)).astype(np.uint8)
+    sizes = np.array([[480, 640], [96, 96]], np.float32)
+    first = det.predict_batch(images, sizes)
+    det.model.load_state_dict(optimize_for_inference(sds[1], precision="bf16"))
+    got = det.predict_batch(images, sizes)
+    np.testing.assert_array_equal(got, ref.predict_batch(images, sizes))
+    assert not np.array_equal(got, first)

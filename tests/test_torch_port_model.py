@@ -350,3 +350,52 @@ def test_detector_cpu_predict_batch(jax_model_params):
                                rtol=1e-2, atol=1e-2)
     im, size = det.process_image(np.zeros((30, 40, 3), np.uint8))
     assert im.shape == (1, 608, 608, 3) and size.tolist() == [[30, 40]]
+
+
+def _jax_bf16_maps(jmodel, params, images, mode):
+    """JAX bf16 head maps traced under ``head_decompose(mode)`` (a jit of
+    its own per mode: the mode is read while tracing)."""
+    from ppyolo_tpu.models.head import head_decompose
+
+    def maps(p, x):
+        ctx = Ctx(train=False)
+        return jmodel.head.get_outputs(p["head"], jmodel.features(p, x, ctx), ctx)
+
+    with head_decompose(mode):
+        outs = jax.jit(maps)(params, jnp.asarray(images.astype(jnp.bfloat16)))
+    return [np.asarray(o).astype(np.float32) for o in outs]
+
+
+def test_bf16_gap_to_jax_is_rounding_order(jax_model_params):
+    """The port's bf16 head maps against the JAX package's, under
+    ``head_decompose('off')`` (materialized concats, as the port) and the
+    serving default ``'auto'`` (the CoordConv and SPP concats summed as
+    split convs).  JAX's two modes differ only in those few sums (relative
+    L2 0, 2.0e-4, 4.2e-4 by level on these inputs) while the port rounds
+    every conv of the network in another order than XLA, so the port lies
+    8.1e-3 to 1.4e-2 from both modes, far outside that gap.  What settles
+    it: the port's bf16 maps lie as close to the exact (fp64, unfolded)
+    forward as JAX's own bf16 maps do (ratio 1.00 to 1.04 by level, held
+    at 1.1), so the gap is two bf16 roundings of the same function, not a
+    fault; and both stay within the 2e-2 of
+    ``test_bf16_serving_outputs_match_jax``."""
+    jmodel, params = jax_model_params
+    params = _perturb_offsets(params)
+    images, _ = _inputs()
+    jp = jax_optimize(params, precision="bf16", fold_bn=True)
+    off = _jax_bf16_maps(jmodel, jp, images, "off")
+    auto = _jax_bf16_maps(jmodel, jp, images, "auto")
+    exact = _maps(_port(jax_flatten_tree(params)), images, torch.float64)
+    model = _port(jax_flatten_tree(params))
+    sd = optimize_for_inference(model.state_dict(), precision="bf16", fold_bn=True)
+    model = model.to(torch.bfloat16, memory_format=torch.channels_last)
+    model.load_state_dict(sd)
+    outs = [o.float().permute(0, 2, 3, 1).numpy()
+            for o in model.outputs(_nchw(images, torch.bfloat16))]
+    rel = lambda a, b: float(np.linalg.norm(a - b) / np.linalg.norm(b))
+    for level, (o, f, a, ex) in enumerate(zip(outs, off, auto, exact)):
+        gaps = {"port-off": rel(o, f), "port-auto": rel(o, a), "off-auto": rel(f, a),
+                "port-exact": rel(o, ex), "off-exact": rel(f, ex), "auto-exact": rel(a, ex)}
+        print(f"level {level}: " + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items()))
+        assert gaps["port-exact"] <= 1.1 * min(gaps["off-exact"], gaps["auto-exact"]), gaps
+        assert max(gaps["port-off"], gaps["port-auto"]) <= 2e-2, gaps

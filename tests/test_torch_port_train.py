@@ -53,7 +53,7 @@ from ppyolo_tpu_torch.ops.ema import ema_apply, ema_update
 from ppyolo_tpu_torch.ops.module import BatchNorm, ParamPolicy
 from ppyolo_tpu_torch.train.loop import run_training
 from ppyolo_tpu_torch.train.lr_schedule import make_lr_fn
-from ppyolo_tpu_torch.train.optimizer import make_sgd, set_lr
+from ppyolo_tpu_torch.train.optimizer import SGD
 from ppyolo_tpu_torch.train.train_step import (build_loss, init_train_state,
                                                make_train_step)
 
@@ -303,8 +303,8 @@ def test_sgd_with_policy_and_ema_match_jax():
     train = [k for k in p0 if pols[k][2]]
     jema = {k: jp[k] for k in train}
     params = {k: torch.nn.Parameter(torch.from_numpy(v.copy())) for k, v in p0.items()}
-    opt = make_sgd(params, {k: ParamPolicy(*v) for k, v in pols.items()},
-                   momentum=0.9, l2_factor=0.0005)
+    opt = SGD(params, {k: ParamPolicy(*v) for k, v in pols.items()},
+              momentum=0.9, l2_factor=0.0005)
     ema = {k: params[k].detach().clone() for k in train}
     plr = make_lr_fn(dict(base_lr=0.1, PiecewiseDecay=dict(gamma=0.1, milestones=[3]),
                           LinearWarmup=dict(start_factor=0.2, steps=2)))
@@ -313,15 +313,13 @@ def test_sgd_with_policy_and_ema_match_jax():
                                        jpol, lr_fn(t), momentum=0.9, l2_factor=0.0005)
         jema = jax_ema_update(jema, {k: jp[k] for k in train}, jnp.asarray(t, jnp.int32),
                               0.9998)
-        for k, p in params.items():
-            p.grad = torch.from_numpy(g[k])
-        set_lr(opt, plr(t))
-        opt.step()
+        opt.step({k: torch.from_numpy(g[k]) for k in params},
+                 torch.tensor(np.float32(plr(t))))
         ema_update(ema, params, t, 0.9998)
     for k, p in params.items():
         np.testing.assert_allclose(p.detach().numpy(), np.asarray(jp[k]), rtol=1e-6, atol=1e-7)
         if k in train:
-            np.testing.assert_allclose(opt.state[p]["momentum_buffer"].numpy(),
+            np.testing.assert_allclose(opt.bufs[k].numpy(),
                                        np.asarray(jvel[k]), rtol=1e-6, atol=1e-7)
             np.testing.assert_allclose(ema[k].numpy(), np.asarray(jema[k]), rtol=1e-6,
                                        atol=1e-7)
