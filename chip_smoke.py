@@ -120,6 +120,37 @@ Phases, one JSON line each; any failure exits non-zero:
                RESUME_STEPS straight against half, ``resume_state`` and the
                rest (DropBlock off, cuDNN deterministic), bitwise or within
                twice the spread of two straight runs.
+11. distributed -- data parallelism (``ppyolo_tpu_torch/parallel``) on the
+               one card, in two layouts (NCCL refuses two ranks on one
+               device).  (a) NCCL at world 1 in this process: DIST_STEPS
+               graphed ``sync_bn`` fine-tuning steps (b8@608 bf16,
+               ``freeze_at=0``, cuDNN deterministic) bitwise equal to as many
+               without a group; the collectives of an eager step (the
+               gradient bucket and 2 per sync-BN layer), NCCL's kernels and
+               K1/K3 in a replay's trace; host ms per unit with and without
+               the group; a remat step (losses within 2e-3 of the plain
+               step's, K1 6 a step), host ms per remat unit and both eager
+               peaks; ``predict_sharded`` equal to ``predict_batch``; the
+               training entry under the group (``--scan_steps 4``,
+               ``warmup_shapes``, ``ckpt_backend='orbax'`` -> DCP) resuming
+               bitwise.  Counters zeroed as the group starts and read as it
+               ends (the ``distributed`` path: K1, K3 and K2 each launched).
+               (b) gloo at world 2: two ranks spawned as
+               ``chip_smoke.py --gloo-rank``, eager (a graph cannot hold
+               gloo's host-staged collectives): GLOO_STEPS bf16 steps each,
+               DropBlock on, params, BN statistics, momentum and EMA bitwise
+               equal on both ranks after each; an fp32 step's losses within
+               2e-3 of one process's step on both batches (b16); then
+               ``entry.eval`` on both ranks: every image's shard once, the
+               merged detections and 12 stats equal to a one-process eval.
+
+12. cards  -- only where the host has more than one card (the one-card run
+               skips it): one NCCL rank a card, spawned as ``chip_smoke.py
+               --card-rank``: CARDS_STEPS graphed ``sync_bn`` steps a rank,
+               bitwise in lockstep, NCCL kernels in a replay's trace, host ms
+               a unit against rank 0's card alone; then the training entry
+               under the group with DCP and a periodic eval on rank 0 while
+               the others wait in their next collective.
 
 Then one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.  Imports nothing of JAX.
@@ -160,6 +191,13 @@ ENTRY_SCAN_GROUP = 2             # the eval's scan_group, held against 1
 LOADER_BATCHES = 8               # the loader alone, after one warm batch
 STEADY_STEPS = 8                 # steady steps after the entry's run
 RESUME_STEPS = 16                # the resume check: 8 + 8 against 16
+DIST_STEPS = 4                   # graphed steps under NCCL world 1, and without a group
+DIST_TIMED_UNITS = 4             # replays timed with and without the group
+DIST_ENTRY_STEPS = 8             # the entry under the group: 2 units of ENTRY_SCAN
+GLOO_STEPS = 2                   # lockstep steps of each of the 2 gloo ranks
+GLOO_TIMEOUT_S = 600             # the gloo ranks' wait, after which both are killed
+CARDS_STEPS = 4                  # graphed steps a rank with one rank on every card
+CARDS_TIMEOUT_S = 900            # the card ranks' wait, after which all are killed
 # the path whose run gives each kernel's ``launches``
 MAIN_PATH = {"dcn_fwd": "serving", "fused_stem": "serving", "dcn_bwd": "training",
              "conv_s2": "probe"}
@@ -1677,6 +1715,637 @@ def entry_resume(data: dict, root: Path) -> dict:
     return out
 
 
+def dist_train_config(drop_block: bool = True):
+    """The fine-tuning of ``train_config`` with ``norm_type='sync_bn'``."""
+    cfg = train_config()
+    cfg.backbone = dict(cfg.backbone, norm_type="sync_bn")
+    cfg.head = dict(cfg.head, norm_type="sync_bn", drop_block=drop_block)
+    return cfg
+
+
+def same_on_all_ranks(tensors) -> bool:
+    """Are ``tensors`` bitwise rank 0's on every rank of the group?"""
+    import torch
+    import torch.distributed as tdist
+
+    flat = torch.cat([t.detach().reshape(-1).double() for t in tensors])
+    ref = flat.clone()
+    tdist.broadcast(ref, 0)
+    ok = torch.tensor([float(torch.equal(ref, flat))], device=flat.device)
+    tdist.all_reduce(ok, op=tdist.ReduceOp.MIN)
+    return bool(ok.item())
+
+
+def losses_rel(got: dict, want: dict) -> float:
+    """Relative L2 of the loss terms (``lr`` left out)."""
+    import numpy as np
+
+    keys = [k for k in want if k != "lr"]
+    a = np.array([float(got[k]) for k in keys])
+    b = np.array([float(want[k]) for k in keys])
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def phase_distributed(smi: str):
+    """Data parallelism on the one card (``ppyolo_tpu_torch/parallel``).
+    NCCL refuses two ranks on one device, so two layouts:
+
+    (a) NCCL at world 1, in this process (``init_from_env`` with a file://
+        address): DIST_STEPS graphed fine-tuning steps (``dist_train_config``,
+        ``sync_bn``, cuDNN deterministic) bitwise equal to as many without a
+        group; the collectives of each step, NCCL's kernels and the
+        port's kernels in a replay's trace; the host's ms per unit with and
+        without the group; one remat step against the plain one (losses
+        within 2e-3, K1 6 a step) and both peaks; then the training entry
+        under the group (``--scan_steps 4``, ``warmup_shapes``,
+        ``ckpt_backend='orbax'`` -> DCP) resuming bitwise.  The launch
+        counters are zeroed as the group starts and read as it ends: the
+        ``distributed`` path of the kernels line.
+    (b) gloo at world 2 on the same card: two ranks spawned as processes of
+        this script (``gloo_rank``), eager (a CUDA graph cannot hold gloo's
+        host-staged collectives): GLOO_STEPS steps each on its own batch
+        with DropBlock on, params, momentum and EMA bitwise equal on both
+        ranks after each; a step with DropBlock off whose losses lie within
+        2e-3 of one process's step on the two batches together (b16); then
+        ``entry.eval`` on both ranks, whose merged result holds every image
+        once and whose 12 stats equal a one-process eval of the same
+        weights.  ``make_sharded_predict`` is held under (a) and on the CPU
+        (tests): gloo gathers no CUDA tensors.
+    """
+    import os
+    import shutil
+
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False   # the fp32 b16 reference, as the ranks
+    torch.backends.cuda.matmul.allow_tf32 = False
+    root = REPO / "build" / "chip_smoke_dist"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    data = entry_dataset(root)
+    (root / "data.json").write_text(json.dumps(data))   # the gloo ranks' copy
+    out = {"phase": "distributed", "nvidia_smi": smi, "host_cpus": os.cpu_count()}
+    out["nccl"], counts = dist_nccl(root, data)
+    torch.cuda.empty_cache()
+    out["gloo"] = dist_gloo(root, data)
+    emit(out)
+    shutil.rmtree(root, ignore_errors=True)
+    return counts
+
+
+def dist_nccl(root: Path, data: dict):
+    """Layout (a) of ``phase_distributed``; returns its result and the
+    (launches, captured) counts of the group's run."""
+    import gc
+    import os
+    import statistics
+
+    import numpy as np
+    import torch
+    import torch.distributed as tdist
+    from torch.profiler import ProfilerActivity, profile
+    from ppyolo_tpu_torch.data.loader import host_to_device
+    from ppyolo_tpu_torch.eval.detector import Detector
+    from ppyolo_tpu_torch.ops.module import BatchNorm
+    from ppyolo_tpu_torch.parallel import dist
+    from ppyolo_tpu_torch.train.graphs import GraphedStep
+    from ppyolo_tpu_torch.train.train_step import init_train_state, make_train_step
+
+    dev = torch.device("cuda")
+    cfg = dist_train_config()
+    host = [synthetic_train_batch(cfg, 60 + i, BATCH, SIZE) for i in range(DIST_STEPS)]
+    batches = [host_to_device(b, dev) for b in host]
+    runs = []   # every graph lives until the layout ends
+
+    def graphed(remat=False):
+        model = build_model(cfg, "cuda").to(memory_format=torch.channels_last)
+        state = init_train_state(model, cfg)
+        gen = torch.Generator(device=dev).manual_seed(61)
+        unit = GraphedStep(make_train_step(model, cfg, compute_dtype=torch.bfloat16,
+                                           remat=remat), state, gen)
+        runs.append((state, unit))
+        return state, unit
+
+    def replays(state, unit, bs):
+        return [{k: v.clone() for k, v in unit(state, b)[1].items()} for b in bs]
+
+    def unit_ms(state, unit):
+        """Host ms per unit (one step), each unit waited for, median."""
+        times = []
+        for i in range(DIST_TIMED_UNITS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            unit(state, batches[i % DIST_STEPS])
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        return statistics.median(times)
+
+    def eager_peak(state, remat):
+        step = make_train_step(state.model, cfg, compute_dtype=torch.bfloat16, remat=remat)
+        gen = torch.Generator(device=dev).manual_seed(62)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        step(state, batches[0], gen)
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated() - base) / 1e9
+
+    def under_group():
+        """The run under the group; its graphs go when it returns."""
+        os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+        zero_counts()
+        gdev = dist.init_from_env(None, init_method=f"file://{root / 'pg_nccl'}")
+        if gdev != torch.device("cuda", 0) or dist.backend() != "nccl":
+            raise AssertionError(f"group on {gdev} under {dist.backend()}")
+        state1, unit1 = graphed()
+        got = replays(state1, unit1, batches)
+        bad = [(i, k) for i, (g, w) in enumerate(zip(got, want)) for k in w
+               if not torch.equal(g[k], w[k])]
+        diff = tensors_diff(state1.tensors(), want_state)
+        if bad or diff["leaves_differ"]:
+            raise AssertionError(f"NCCL world-1 graphed steps differ from no group: losses "
+                                 f"{bad[:5]}, state {diff}")
+        out["bitwise_group_vs_no_group"] = True
+        out["host_ms_per_unit_group"] = unit_ms(state1, unit1)
+
+        # the collectives of one step: the gradient bucket, and each sync-BN
+        # layer's statistics forward and backward
+        n_bn = sum(isinstance(m, BatchNorm) and m.sync for m in state1.model.modules())
+        eager = make_train_step(state1.model, cfg, compute_dtype=torch.bfloat16)
+        gen = torch.Generator(device=dev).manual_seed(63)
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            eager(state1, batches[0], gen)
+            torch.cuda.synchronize()
+        calls = {e.key: e.count for e in prof.key_averages() if "allreduce" in e.key.lower()}
+        out.update(sync_bn_layers=n_bn, allreduce_ops_eager_step=calls,
+                   allreduce_ops_want=1 + 2 * n_bn)
+        if calls.get("c10d::allreduce_") != 1 + 2 * n_bn:
+            raise AssertionError(f"collectives of an eager step {calls}, want "
+                                 f"{1 + 2 * n_bn} c10d::allreduce_")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            unit1(state1, batches[0])
+            torch.cuda.synchronize()
+        ev = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+        nccl = [e for e in ev if "nccl" in e.key.lower()]
+        out.update(nccl_kernels_per_step=sum(e.count for e in nccl),
+                   nccl_device_ms_per_step=sum(e.self_device_time_total for e in nccl) / 1e3,
+                   nccl_kernel_names=sorted({e.key[:60] for e in nccl}),
+                   device_ms_per_step=device_time(prof, 1)[0],
+                   launches_per_step=kernel_launches(prof, 1))
+        if out["launches_per_step"] != {"dcn_fwd": 3, "dcn_bwd": 3, "fused_stem": 0,
+                                        "conv_s2": 0}:
+            raise AssertionError(f"replay under the group: launches {out['launches_per_step']}")
+
+        # remat against the plain step (the first of ``want``)
+        before = read_counts(), read_captured()
+        state2, unit2 = graphed(remat=True)
+        remat_losses = replays(state2, unit2, batches[:1])[0]
+        launched = {k: v - before[0][k] for k, v in read_counts().items()}
+        recorded = {k: v - before[1][k] for k, v in read_captured().items()}
+        out["remat_losses_rel_to_plain"] = losses_rel(remat_losses, want[0])
+        out["remat_losses_bitwise"] = all(torch.equal(remat_losses[k], want[0][k])
+                                          for k in want[0])
+        out["remat_launches"], out["remat_captured"] = launched, recorded
+        out["host_ms_per_unit_remat"] = unit_ms(state2, unit2)
+        out["host_ms_per_unit_plain_again"] = unit_ms(state1, unit1)
+        if out["remat_losses_rel_to_plain"] > 2e-3:
+            raise AssertionError(f"remat losses {out['remat_losses_rel_to_plain']} from plain")
+        per_step = {"dcn_fwd": 6, "dcn_bwd": 3}
+        if (recorded != expect(per_step, 1)
+                or launched != expect(per_step, 1 + warmup_iters())):
+            raise AssertionError(f"remat step: launches {launched}, captured {recorded}")
+        out["peak_gb_eager_step_plain"] = eager_peak(state2, False)
+        out["peak_gb_eager_step_remat"] = eager_peak(state2, True)
+
+        # the sharded predict (world 1: the whole batch on this rank)
+        det_model = build_model(cfg, "cuda", calib_size=SIZE)
+        sd = {k: v.detach().cpu() for k, v in det_model.state_dict().items()}
+        detector = Detector(det_model, sd, cfg, precision="bf16", device="cuda")
+        ims = np.stack([b["image"][0] for b in host])
+        sizes = np.tile(np.array([[SIZE, SIZE]], np.float32), (len(ims), 1))
+        if not np.array_equal(detector.predict_sharded(ims, sizes),
+                              detector.predict_batch(ims, sizes)):
+            raise AssertionError("predict_sharded differs from predict_batch at world 1")
+        out["sharded_predict_equal"] = True
+
+        out.update(dist_nccl_entry(root, data))
+        launches, captured = read_counts(), read_captured()
+        out["launches"], out["captured"] = launches, captured
+        missing = [k for k in ("dcn_fwd", "dcn_bwd", "fused_stem") if not launches[k]]
+        if missing:
+            raise AssertionError(f"the distributed path launched no {missing}: {launches}")
+        return launches, captured
+
+    out = {"model": "ppyolo_2x", "freeze_at": 0, "norm": "sync_bn", "batch": BATCH,
+           "size": SIZE, "precision": "bf16", "steps": DIST_STEPS}
+    bench, det = torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic
+    torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = False, True
+    env = {k: os.environ.get(k) for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK")}
+    try:
+        state0, unit0 = graphed()
+        want = replays(state0, unit0, batches)
+        want_state = {k: v.clone() for k, v in state0.tensors().items()}
+        out["host_ms_per_unit_no_group"] = unit_ms(state0, unit0)
+
+        launches, captured = under_group()
+    finally:
+        # a live graph that captured NCCL collectives keeps the communicator
+        # busy, and destroy_process_group would wait for it forever
+        runs.clear()
+        gc.collect()
+        if dist.active():
+            tdist.destroy_process_group()
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = bench, det
+    return out, (launches, captured)
+
+
+def dist_nccl_entry(root: Path, data: dict) -> dict:
+    """The training entry under the NCCL group: the recipe with
+    ``--scan_steps`` ENTRY_SCAN, ``warmup_shapes`` and
+    ``ckpt_backend='orbax'`` (DCP) for DIST_ENTRY_STEPS steps, a DCP step at
+    each unit; then DIST_ENTRY_STEPS / 2 steps and a second run that resumes
+    from the DCP step, bitwise the straight run (DropBlock off, cuDNN
+    deterministic, as ``entry_resume``)."""
+    from ppyolo_tpu_torch.checkpoint.dcp_io import DCPCheckpointer
+    from ppyolo_tpu_torch.entry.train import run_training
+
+    def cfg_for(**train):
+        cfg = entry_config(data, root, **dict(dict(
+            max_iters=DIST_ENTRY_STEPS, save_iter=ENTRY_SCAN, eval_iter=10 ** 9, log_iter=1,
+            scan_steps=ENTRY_SCAN, ckpt_backend="orbax"), **train))
+        cfg.head = dict(cfg.head, drop_block=False)
+        return cfg
+
+    t0 = time.time()
+    straight = state_arrays(run_training(cfg_for(warmup_shapes=True),
+                                         weights_dir=str(root / "dcp_straight")))
+    straight_s = time.time() - t0
+    steps = DCPCheckpointer(str(root / "dcp_straight" / "dcp")).steps()
+    wdir = root / "dcp_resumed"
+    run_training(cfg_for(max_iters=DIST_ENTRY_STEPS // 2), weights_dir=str(wdir))
+    resumed = state_arrays(run_training(cfg_for(), weights_dir=str(wdir)))
+    diff = state_diff(resumed, straight)
+    want = list(range(ENTRY_SCAN, DIST_ENTRY_STEPS + 1, ENTRY_SCAN))
+    if steps != want or diff["leaves_differ"]:
+        raise AssertionError(f"entry under the group: DCP steps {steps} (want {want}), "
+                             f"resumed vs straight {diff}")
+    rows = read_metrics(root / "dcp_straight")[0]
+    return {"entry_steps": DIST_ENTRY_STEPS, "entry_scan_steps": ENTRY_SCAN,
+            "entry_run_s_with_warmup_shapes": straight_s, "entry_dcp_steps": steps,
+            "entry_resume_bitwise": True,
+            "entry_step_ms": [1e3 * r["step_s"] for r in rows],
+            "entry_params_npz": str(root / "dcp_straight" / f"step{DIST_ENTRY_STEPS:08d}.npz")}
+
+
+def dist_gloo(root: Path, data: dict) -> dict:
+    """Layout (b) of ``phase_distributed``: the two gloo ranks, then the
+    one-process references here."""
+    import os
+    import subprocess
+
+    import numpy as np
+    import torch
+    from ppyolo_tpu_torch.data.loader import host_to_device
+    from ppyolo_tpu_torch.entry.eval import run_eval
+    from ppyolo_tpu_torch.train.train_step import init_train_state, make_train_step
+
+    init = f"file://{root / 'pg_gloo'}"
+    env = {k: v for k, v in os.environ.items() if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK")}
+    t0 = time.time()
+    procs = []
+    for r in range(2):
+        with open(root / f"gloo{r}.log", "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(REPO / "chip_smoke.py"), "--gloo-rank", str(r), "2", init,
+                 str(root)], env=env, stdout=log, stderr=subprocess.STDOUT))
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, t0 + GLOO_TIMEOUT_S - time.time()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+    if any(p.returncode for p in procs):
+        logs = "".join((root / f"gloo{r}.log").read_text()[-3000:] for r in range(2))
+        raise AssertionError(f"gloo ranks exited {[p.returncode for p in procs]}:\n{logs}")
+    ranks = [json.loads((root / f"gloo{r}.json").read_text()) for r in range(2)]
+    out = {"world": 2, "backend": "gloo", "eager": True, "ranks_s": time.time() - t0,
+           "ranks": ranks}
+    if not all(all(r["lockstep"]) and len(r["lockstep"]) == GLOO_STEPS for r in ranks):
+        raise AssertionError(f"gloo ranks out of lockstep: {[r['lockstep'] for r in ranks]}")
+
+    # one process on the two ranks' first batches together (b16), fp32 as
+    # the JAX package's equivalence (tests/test_train.py:202-233): in bf16
+    # a rounding flipped by the other summation order moves the losses of
+    # this random network by as much as the tolerance
+    cfg = dist_train_config(drop_block=False)
+    both = {k: np.concatenate([synthetic_train_batch(cfg, gloo_seed(r, 0), BATCH, SIZE)[k]
+                               for r in range(2)]) for k in ("image", "gt_bbox", "gt_class",
+                                                             "gt_score")}
+    model = build_model(cfg, "cuda").to(memory_format=torch.channels_last)
+    state = init_train_state(model, cfg)
+    _, losses = make_train_step(model, cfg)(state, host_to_device(both, torch.device("cuda")))
+    want = {k: float(v) for k, v in losses.items()}
+    out["b16_losses"] = want
+    out["b16_rel"] = losses_rel(ranks[0]["no_dropblock_losses"], want)
+    del model, state
+    torch.cuda.empty_cache()
+    if out["b16_rel"] > 2e-3:
+        raise AssertionError(f"2-rank losses {out['b16_rel']} from the b16 step (> 2e-3)")
+
+    # the eval: rank 0's merged result against one process's
+    cfg = gloo_eval_config(data, root)
+    one = run_eval(cfg, precision="bf16", result_dir=str(root / "eval_one"))
+    merged = json.loads((root / "eval_gloo" / "bbox_detections.json").read_text())
+    one_dets = json.loads((root / "eval_one" / "bbox_detections.json").read_text())
+    shards = sorted(os.listdir(root / "eval_gloo" / "bbox"))
+    want_shards = sorted(f"{im['id']}.json" for im in json.loads(
+        Path(cfg.val_path).read_text())["images"])
+    out.update(eval_stats=ranks[0]["eval_stats"], eval_stats_one_process=one.tolist(),
+               eval_shards=len(shards), eval_rank1_none=ranks[1]["eval_stats"] is None)
+    if shards != want_shards or ranks[1]["eval_stats"] is not None:
+        raise AssertionError(f"2-rank eval shards {shards}, want {want_shards}; rank 1 "
+                             f"returned {ranks[1]['eval_stats']}")
+    out["eval_bitwise"] = merged == one_dets and ranks[0]["eval_stats"] == one.tolist()
+    if not out["eval_bitwise"]:
+        gap = float(np.max(np.abs(np.array(ranks[0]["eval_stats"]) - one)))
+        out["eval_stats_max_abs_diff"] = gap
+        if gap > 1e-3 or len(merged) != len(one_dets):
+            raise AssertionError(f"2-rank eval stats {ranks[0]['eval_stats']} vs one process "
+                                 f"{one.tolist()}")
+    return out
+
+
+def gloo_seed(rank: int, step: int) -> int:
+    return 80 + 10 * rank + step
+
+
+def gloo_eval_config(data: dict, root: Path):
+    """The entry phase's eval on the params the NCCL entry run saved (its
+    model has no DropBlock layers, which would shift the head's paths)."""
+    cfg = entry_config({k: tuple(v) for k, v in data.items()}, root)
+    cfg.head = dict(cfg.head, drop_block=False)
+    cfg.eval_cfg = dict(cfg.eval_cfg, model_path=str(
+        root / "dcp_straight" / f"step{DIST_ENTRY_STEPS:08d}.npz"))
+    return cfg
+
+
+def gloo_rank(rank: int, world: int, init: str, root: str) -> int:
+    """One rank of ``dist_gloo`` (``chip_smoke.py --gloo-rank RANK WORLD
+    INIT ROOT``): a gloo group on cuda:0, eager steps and the eval; writes
+    ``ROOT/gloo<rank>.json``."""
+    import json
+    import statistics
+
+    import torch
+    import torch.distributed as tdist
+
+    sys.path.insert(0, str(REPO))
+    from ppyolo_tpu_torch.data.loader import host_to_device
+    from ppyolo_tpu_torch.entry.eval import run_eval
+    from ppyolo_tpu_torch.parallel import dist
+    from ppyolo_tpu_torch.train.train_step import init_train_state, make_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = False, True
+    root = Path(root)
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    tdist.init_process_group("gloo", init_method=init, rank=rank, world_size=world,
+                             timeout=dist.GROUP_TIMEOUT)
+    out = {"rank": rank, "lockstep": []}
+    zero_counts()
+
+    def run(drop_block, n_steps, dtype):
+        cfg = dist_train_config(drop_block)
+        model = build_model(cfg, "cuda").to(memory_format=torch.channels_last)
+        state = dist.broadcast_state(init_train_state(model, cfg))
+        step = make_train_step(model, cfg, compute_dtype=dtype)
+        gen = torch.Generator(device=dev).manual_seed(71)   # alike on every rank
+        losses, times = [], []
+        for i in range(n_steps):
+            b = host_to_device(synthetic_train_batch(cfg, gloo_seed(rank, i), BATCH, SIZE), dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, l = step(state, b, gen)
+            losses.append({k: float(v) for k, v in l.items()})
+            times.append(1e3 * (time.perf_counter() - t0))
+            if drop_block:   # sync_bn: the BN statistics are the same on every rank too
+                out["lockstep"].append(same_on_all_ranks(state.tensors().values()))
+        return losses, times
+
+    losses, times = run(True, GLOO_STEPS, torch.bfloat16)
+    out.update(dropblock_losses=losses, ms_per_step_host_staged=statistics.median(times))
+    out["no_dropblock_losses"] = run(False, 1, torch.float32)[0][0]
+    torch.cuda.empty_cache()
+    data = json.loads((root / "data.json").read_text())
+    stats = run_eval(gloo_eval_config(data, root), precision="bf16",
+                     result_dir=str(root / "eval_gloo"))
+    out["eval_stats"] = None if stats is None else [float(s) for s in stats]
+    out["launches"], out["captured"] = read_counts(), read_captured()
+    (root / f"gloo{rank}.json").write_text(json.dumps(out))
+    tdist.destroy_process_group()
+    return 0
+
+
+def phase_cards(smi: str) -> dict:
+    """Data parallelism across every card of the host, one rank a card under
+    NCCL (``main`` runs it when there is more than one card; the one-card
+    run skips it).  The ranks are spawned as ``chip_smoke.py --card-rank``:
+
+    1. CARDS_STEPS graphed ``sync_bn`` fine-tuning steps a rank
+       (``dist_train_config``, b8@608 bf16, DropBlock on, each rank its own
+       batches): params, BN statistics, momentum and EMA bitwise equal on
+       every rank after each step; NCCL's kernels and their device ms and
+       K1/K3 per step in a replay's trace; host ms per unit; then rank 0
+       times the same unit on its card without a group (world 1);
+    2. the training entry under the group (the recipe with ``--scan_steps
+       4`` and ``ckpt_backend='orbax'``, DIST_ENTRY_STEPS steps, a periodic
+       eval at the midpoint that rank 0 runs while the others wait in their
+       next unit's collectives): every rank ends at the last step with
+       params, momentum and EMA equal, rank 0 alone wrote the npz files and
+       ``metrics.jsonl``, DCP committed a step at each unit."""
+    import os
+    import shutil
+    import subprocess
+
+    import torch
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        raise RuntimeError(f"phase_cards needs more than one card, found {n}")
+    root = REPO / "build" / "chip_smoke_cards"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    (root / "data.json").write_text(json.dumps(entry_dataset(root)))
+    init = f"file://{root / 'pg_cards'}"
+    t0 = time.time()
+    procs = []
+    for r in range(n):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(n), LOCAL_RANK=str(r))
+        with open(root / f"card{r}.log", "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(REPO / "chip_smoke.py"), "--card-rank", init, str(root),
+                 str(CARDS_TIMEOUT_S)], env=env, stdout=log, stderr=subprocess.STDOUT))
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, t0 + CARDS_TIMEOUT_S - time.time()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+    if any(p.returncode for p in procs):
+        logs = "".join((root / f"card{r}.log").read_text()[-3000:] for r in range(n))
+        raise AssertionError(f"card ranks exited {[p.returncode for p in procs]}:\n{logs}")
+    ranks = [json.loads((root / f"card{r}.json").read_text()) for r in range(n)]
+    wdir = root / "entry"
+    files = sorted(os.listdir(wdir))
+    rows = [json.loads(line) for line in open(wdir / "metrics.jsonl")]
+    steps = [r["iter"] for r in rows if "total_loss" in r]
+    evals = [r["iter"] for r in rows if "box_ap" in r]
+    half = DIST_ENTRY_STEPS // 2
+    out = {"phase": "cards", "world": n, "backend": "nccl", "nvidia_smi": smi,
+           "ranks_s": time.time() - t0, "ranks": ranks, "entry_files": files,
+           "entry_logged_iters": steps, "entry_eval_iters": evals}
+    r0 = ranks[0]
+    out["img_per_s_world"] = n * BATCH / (r0["host_ms_per_unit"] / 1e3)
+    out["img_per_s_one_card"] = BATCH / (r0["host_ms_per_unit_one_card"] / 1e3)
+    out["scaling_efficiency"] = out["img_per_s_world"] / (n * out["img_per_s_one_card"])
+    emit(out)
+    bad = [r["rank"] for r in ranks
+           if not (all(r["lockstep"]) and len(r["lockstep"]) == CARDS_STEPS
+                   and r["nccl_kernels_per_step"] > 0
+                   and r["launches_per_step"] == {"dcn_fwd": 3, "dcn_bwd": 3, "fused_stem": 0,
+                                                  "conv_s2": 0}
+                   and r["entry_step"] == DIST_ENTRY_STEPS and r["entry_replicas_equal"]
+                   and r["entry_dcp_steps"] == [half, DIST_ENTRY_STEPS])]
+    need = {f"step{half:08d}.npz", f"step{DIST_ENTRY_STEPS:08d}.npz", "last_state.npz",
+            "metrics.jsonl", "dcp"}
+    if bad or not need <= set(files) or evals != [half, DIST_ENTRY_STEPS] or len(steps) != len(
+            set(steps)):
+        raise AssertionError(f"cards: ranks {bad} failed a gate; files {files}, logged "
+                             f"{steps}, evals {evals}")
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def card_rank(init: str, root: str, timeout_s: float) -> int:
+    """One rank of ``phase_cards`` (``chip_smoke.py --card-rank INIT ROOT
+    TIMEOUT_S``, with ``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK`` set);
+    writes ``ROOT/card<rank>.json``.  Each stage is logged with its time,
+    and a rank still running 60 s before the parent's deadline
+    (``TIMEOUT_S``) dumps every thread's stack (``faulthandler``), so a hung
+    collective shows where."""
+    import faulthandler
+    import gc
+    import logging
+    import os
+    import statistics
+
+    import torch
+    import torch.distributed as tdist
+    from torch.profiler import ProfilerActivity, profile
+
+    sys.path.insert(0, str(REPO))
+    from ppyolo_tpu_torch.checkpoint.dcp_io import DCPCheckpointer
+    from ppyolo_tpu_torch.data.loader import host_to_device
+    from ppyolo_tpu_torch.entry.train import run_training
+    from ppyolo_tpu_torch.parallel import dist
+    from ppyolo_tpu_torch.train.graphs import GraphedStep
+    from ppyolo_tpu_torch.train.train_step import init_train_state, make_train_step
+
+    faulthandler.dump_traceback_later(max(timeout_s - 60, 30))
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s: %(message)s")
+    t_start = time.time()
+
+    def stage(what):
+        print(f"[card {os.environ.get('RANK')}] {time.time() - t_start:.1f}s {what}", flush=True)
+
+    root = Path(root)
+    dev = dist.init_from_env(None, init_method=init)
+    rank = dist.rank()
+    stage(f"group on {dev}")
+    cfg = dist_train_config()
+    batches = [host_to_device(synthetic_train_batch(cfg, 100 + 10 * rank + i, BATCH, SIZE), dev)
+               for i in range(CARDS_STEPS)]
+
+    def graphed():
+        model = build_model(cfg, dev).to(memory_format=torch.channels_last)
+        state = dist.broadcast_state(init_train_state(model, cfg))
+        gen = torch.Generator(device=dev).manual_seed(101)   # alike on every rank
+        return state, GraphedStep(make_train_step(model, cfg, compute_dtype=torch.bfloat16),
+                                  state, gen)
+
+    def unit_ms(state, unit):
+        times = []
+        for i in range(CARDS_STEPS):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            unit(state, batches[i])
+            torch.cuda.synchronize(dev)
+            times.append(1e3 * (time.perf_counter() - t0))
+        return statistics.median(times)
+
+    out = {"rank": rank, "device": str(dev), "lockstep": []}
+    state, unit = graphed()
+    stage("model built and broadcast")
+    for i, b in enumerate(batches):
+        unit(state, b)
+        out["lockstep"].append(same_on_all_ranks(state.tensors().values()))
+        stage(f"graphed step {i}")
+    out["host_ms_per_unit"] = unit_ms(state, unit)
+    stage("timed")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        unit(state, batches[0])
+        torch.cuda.synchronize(dev)
+    ev = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    nccl = [e for e in ev if "nccl" in e.key.lower()]
+    out.update(nccl_kernels_per_step=sum(e.count for e in nccl),
+               nccl_device_ms_per_step=sum(e.self_device_time_total for e in nccl) / 1e3,
+               nccl_kernel_names=sorted({e.key[:60] for e in nccl}),
+               device_ms_per_step=device_time(prof, 1)[0],
+               launches_per_step=kernel_launches(prof, 1))
+    # a live graph that captured NCCL collectives keeps the communicator
+    # busy: destroy_process_group waits for it forever
+    del state, unit, prof
+    gc.collect()
+    stage("profiled")
+    data = json.loads((root / "data.json").read_text())
+    ecfg = entry_config({k: tuple(v) for k, v in data.items()}, root, scan_steps=ENTRY_SCAN,
+                        max_iters=DIST_ENTRY_STEPS, save_iter=ENTRY_SCAN,
+                        eval_iter=DIST_ENTRY_STEPS // 2, ckpt_backend="orbax")
+    t0 = time.time()
+    est = run_training(ecfg, weights_dir=str(root / "entry"))
+    out.update(entry_s=time.time() - t0, entry_step=est.step,
+               entry_replicas_equal=same_on_all_ranks(
+                   [v for k, v in est.tensors().items() if "running_" not in k]),
+               entry_dcp_steps=DCPCheckpointer(str(root / "entry" / "dcp")).steps())
+    del est
+    gc.collect()
+    stage("entry done")
+    tdist.destroy_process_group()
+    if rank == 0:   # the same unit on this card alone
+        state, unit = graphed()
+        unit(state, batches[0])
+        out["host_ms_per_unit_one_card"] = unit_ms(state, unit)
+    (root / f"card{rank}.json").write_text(json.dumps(out))
+    stage("done")
+    faulthandler.cancel_dump_traceback_later()
+    return 0
+
+
 def main() -> int:
     import faulthandler
 
@@ -1705,6 +2374,10 @@ def main() -> int:
         phase_train_check()
         torch.cuda.empty_cache()
         counts["entry"] = phase_entry(smi)
+        torch.cuda.empty_cache()
+        counts["distributed"] = phase_distributed(smi)
+        if torch.cuda.device_count() > 1:
+            phase_cards(smi)
     except Exception as e:  # report and fail: no result line
         import traceback
 
@@ -1723,4 +2396,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--gloo-rank"]:   # one rank of the distributed phase's layout (b)
+        sys.exit(gloo_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]))
+    if sys.argv[1:2] == ["--card-rank"]:   # one rank of phase_cards
+        sys.exit(card_rank(sys.argv[2], sys.argv[3], float(sys.argv[4])))
     sys.exit(main())

@@ -6,7 +6,10 @@ written by either package loads in the other.  A train-state bundle holds
 ``params/<path>``, ``velocity/<path>`` (the SGD momentum buffers, zeros
 before the first step), ``ema/<path>`` and ``step``.  Loading skips unknown keys and
 shape mismatches (reference train.py:156-169, class-count fine-tuning);
-writes are atomic (a temporary name, then a rename).
+writes are atomic (a temporary name, then a rename).  Under a process
+group rank 0 alone writes these files and every rank loads them
+(``entry/train.py``: a barrier ends each run, so no rank resumes from a
+file still being written; a broadcast follows each load).
 """
 from __future__ import annotations
 

@@ -6,8 +6,14 @@ Weights come from ``eval_cfg['model_path']`` (an npz in the JAX package's
 format; random weights from seed 0 when it is missing) or the caller's
 ``state_dict``.  ``type_='test_dev'`` writes the submission json of
 ``cfg.test_path`` instead.  ``--scan_group N`` runs N batches as one unit
-of work (``Detector.predict_pipelined``).  Several cards (``ndev > 1``) and
-``.pt`` weights are not ported and raise ``NotImplementedError``.
+of work (``Detector.predict_pipelined``).  On N cards, one process each:
+
+    python -m torch.distributed.run --nproc_per_node N -m ppyolo_tpu_torch.entry.eval --config 0
+
+every rank evaluates its shard of the images on its own card and rank 0
+merges the shards and scores them (``coco_eval(distributed=True)``; the
+others return None).  ``--ndev`` must equal the world size.  ``.pt``
+weights are not ported and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -23,18 +29,20 @@ from ..data.coco import CocoJson
 from ..eval.coco_eval import clsid_to_catid, coco_eval, get_classes
 from ..eval.detector import Detector
 from ..models import PPYOLO
-from .train import str2bool
+from ..parallel import dist
+from .train import check_ndev, str2bool
 
 logger = logging.getLogger(__name__)
 
 
 def run_eval(cfg, *, type_: str = "eval", state_dict=None, precision: str = "fp32",
-             device=None, result_dir: str = "eval_results", ndev: int = 1,
+             device=None, result_dir: str = "eval_results", ndev: Optional[int] = None,
              scan_group: int = 1):
-    """The 12 box-AP stats of ``cfg``'s val set (None for test-dev).
-    ``device`` defaults to ``cuda`` and raises without a card."""
-    if ndev > 1:
-        raise NotImplementedError("eval on several cards is not ported (ROADMAP §1 item 8)")
+    """The 12 box-AP stats of ``cfg``'s val set (None for test-dev, and on
+    every rank but 0 under a process group).  ``device`` defaults to
+    ``cuda`` (the rank's card under a group) and raises without a card;
+    ``ndev`` defaults to the world size."""
+    check_ndev(ndev)
     model = PPYOLO.from_config(cfg)
     if state_dict is None:
         model.init_parameters(torch.Generator().manual_seed(0))
@@ -61,7 +69,8 @@ def run_eval(cfg, *, type_: str = "eval", state_dict=None, precision: str = "fp3
                       type_=type_, result_dir=result_dir, clsid2catid=clsid_to_catid(cfg, coco),
                       draw_image=cfg.eval_cfg.get("draw_image", False),
                       draw_thresh=cfg.eval_cfg.get("draw_thresh", 0.15),
-                      class_names=class_names, scan_group=scan_group)
+                      class_names=class_names, scan_group=scan_group,
+                      distributed=dist.active())
     if stats is not None:
         logger.info("box ap: %.4f", float(stats[0]))
     return stats
@@ -74,14 +83,16 @@ def main(argv: Optional[list] = None, type_: str = "eval"):
     p.add_argument("--config", type=int, default=0, choices=[0, 1, 2])
     p.add_argument("--use_gpu", type=str2bool, default=True, help="False runs on the host CPU")
     p.add_argument("--precision", type=str, default="fp32", choices=["fp32", "bf16"])
-    p.add_argument("--ndev", type=int, default=1, help="cards (only 1 is ported)")
+    p.add_argument("--ndev", type=int, default=None,
+                   help="cards, one process each (default: the world size)")
     p.add_argument("--scan_group", type=int, default=1,
                    help=">1 runs that many batches as one unit (one CUDA graph replay)")
     p.add_argument("--result_dir", type=str, default="eval_results")
     args = p.parse_args(argv)
-    return run_eval(get_config(args.config), type_=type_, precision=args.precision,
-                    device=None if args.use_gpu else "cpu", result_dir=args.result_dir,
-                    ndev=args.ndev, scan_group=args.scan_group)
+    with dist.env_group(None if args.use_gpu else "cpu") as device:
+        return run_eval(get_config(args.config), type_=type_, precision=args.precision,
+                        device=device, result_dir=args.result_dir, ndev=args.ndev,
+                        scan_group=args.scan_group)
 
 
 if __name__ == "__main__":

@@ -2,7 +2,7 @@
 
     python -m ppyolo_tpu_torch.entry.train --config 0 --precision bf16
 
-follows ``train.py:57-370`` on one card: weights from
+follows ``train.py:57-370``: weights from
 ``train_cfg['model_path']`` (an npz in the JAX package's format; a
 'step%08d' name also sets the resume step), a full train state from
 ``train_cfg['resume_state']``, the start iter the later of the two; the
@@ -25,9 +25,25 @@ the loop with ``train_cfg['warmup_shapes']`` (one ``{"warmup_size", "secs",
 "time"}`` line per size in metrics.jsonl).  Checkpoints and evals fall on
 the units that cross their cadence, as in ``train.py``.
 
-Not ported, and refused with ``NotImplementedError``: several cards or
-processes (``ndev > 1``), the orbax checkpoint backend and ``.pt``
-weights.
+On N cards, one process each (``parallel/dist.py``):
+
+    python -m torch.distributed.run --nproc_per_node N \
+        -m ppyolo_tpu_torch.entry.train --config 0 --scan_steps 4
+
+Each rank reads its own shard of the records and steps on ``batch_size``
+images, so the global batch is ``N × batch_size``; gradients and losses
+are averaged over the ranks inside each unit (a replay includes its NCCL
+all-reduces), and ``norm_type='sync_bn'`` averages the BN statistics.  The
+state is broadcast from rank 0 after the weights, the resume state and a
+DCP restore are loaded.  Rank 0 alone writes the npz files, the GC and
+``metrics.jsonl`` and runs the periodic eval (``distributed=False``); the
+other ranks wait for it in the next unit's collective
+(``dist.GROUP_TIMEOUT``).  ``ckpt_backend='orbax'`` adds full-state
+checkpoints through ``torch.distributed.checkpoint``
+(``checkpoint/dcp_io.py``, ``weights_dir/dcp``), saved by every rank and
+restored from the latest step at start.  ``--use_gpu false`` runs the
+ranks on the CPU under gloo; ``--ndev`` must equal the world size.
+``.pt`` weights are not ported and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -40,6 +56,7 @@ from typing import Optional
 
 import torch
 
+from ..checkpoint.dcp_io import DCPCheckpointer
 from ..checkpoint.io import (AsyncCheckpointer, gc_checkpoints, load_params_npz,
                              load_train_state, resume_step_from_filename)
 from ..data.coco import CocoJson, category_maps, data_clean
@@ -49,6 +66,7 @@ from ..eval.detector import Detector
 from ..models import PPYOLO
 from ..ops.ema import ema_apply
 from ..ops.module import resolve_device
+from ..parallel import dist
 from ..tools.warmup_shapes import warmup_units
 from ..train.loop import PRECISIONS, make_unit_step, step_loop
 from ..train.train_step import TrainState, init_train_state
@@ -67,14 +85,24 @@ def str2bool(v) -> bool:
     raise argparse.ArgumentTypeError("Unsupported value encountered.")
 
 
-def check_ported(cfg, ndev: int = 1) -> None:
+CKPT_BACKENDS = ("npz", "orbax")
+
+
+def check_ndev(ndev: Optional[int]) -> None:
+    """``--ndev`` (None: the world size) must be the process group's world
+    size: one process per card."""
+    if ndev is not None and ndev != dist.world():
+        raise ValueError(f"--ndev {ndev} differs from the world size {dist.world()}: launch "
+                         f"one process per card (python -m torch.distributed.run "
+                         f"--nproc_per_node {ndev} ...)")
+
+
+def check_ported(cfg, ndev: Optional[int] = None) -> None:
     """Raise for the training inputs this port does not run."""
     tc = cfg.train_cfg
-    if ndev > 1:
-        raise NotImplementedError("training on several cards is not ported (ROADMAP §1 item 8)")
-    if tc.get("ckpt_backend", "npz") != "npz":
-        raise NotImplementedError(f"checkpoint backend {tc['ckpt_backend']!r} is not ported "
-                                  "(ROADMAP §1 item 8)")
+    check_ndev(ndev)
+    if tc.get("ckpt_backend", "npz") not in CKPT_BACKENDS:
+        raise ValueError(f"checkpoint backend {tc['ckpt_backend']!r} not in {CKPT_BACKENDS}")
     if str(tc.get("model_path") or "").endswith(".pt"):
         raise NotImplementedError(".pt weights are not ported (ROADMAP §1 item 12)")
 
@@ -86,13 +114,15 @@ def eval_state_dict(state: TrainState):
 
 
 def run_training(cfg, *, weights_dir: str = "./weights", device=None,
-                 ndev: int = 1) -> TrainState:
+                 ndev: Optional[int] = None) -> TrainState:
     """Train ``cfg`` on its COCO train set and return the final state.
-    ``device`` defaults to ``cuda`` and raises without a card."""
+    ``device`` defaults to ``cuda`` (the rank's card under a process group)
+    and raises without a card; ``ndev`` defaults to the world size."""
     check_ported(cfg, ndev)
     dev = resolve_device(device)
     tc = cfg.train_cfg
     precision = tc.get("precision", "fp32")
+    is_main = dist.rank() == 0
 
     model = PPYOLO.from_config(cfg).init_parameters(torch.Generator().manual_seed(0))
     start_iter = 0
@@ -108,27 +138,40 @@ def run_training(cfg, *, weights_dir: str = "./weights", device=None,
     if resume_state and os.path.exists(resume_state):
         load_train_state(resume_state, state)
         logger.info("resumed full train state from %s (step %d)", resume_state, state.step)
+    os.makedirs(weights_dir, exist_ok=True)
+    dcp_ckpt = None
+    if tc.get("ckpt_backend", "npz") == "orbax":
+        dcp_ckpt = DCPCheckpointer(os.path.join(weights_dir, "dcp"), keep=10)
+        if dcp_ckpt.latest_step() is not None:
+            dcp_ckpt.restore(state)
+            logger.info("DCP resume from step %d", state.step)
+    # every rank loaded the same files; rank 0's state is the replicas' start
+    dist.broadcast_state(state)
     # the data stream and the LR restart from the restored step
     start_iter = max(start_iter, state.step)
     state.set_step(start_iter)
-    os.makedirs(weights_dir, exist_ok=True)
 
     coco = CocoJson(cfg.train_path)
     catid2clsid, _, _ = category_maps(coco)
     records = data_clean(coco, coco.get_img_ids(), catid2clsid, cfg.train_pre_path)
     logger.info("%d samples in train set.", len(records))
+    if dist.world() > 1:
+        logger.info("rank %d/%d reads a %d-record shard", dist.rank(), dist.world(),
+                    len(records[dist.rank()::dist.world()]))
 
     scan_steps = int(tc.get("scan_steps", 1))
-    generator = torch.Generator(device=dev).manual_seed(1)
+    generator = torch.Generator(device=dev).manual_seed(1)   # alike on every rank
     unit_step = make_unit_step(model, cfg, state, generator, n_steps=scan_steps,
-                               compute_dtype=PRECISIONS[precision])
+                               compute_dtype=PRECISIONS[precision],
+                               capture=dist.can_capture(dev))
     metrics_path = os.path.join(weights_dir, "metrics.jsonl")
     ckpt = AsyncCheckpointer()
     eval_det, best_ap = None, -1.0   # one eval model, refreshed by set_params
 
     def log_row(row):
-        with open(metrics_path, "a") as f:
-            f.write(json.dumps(row) + "\n")
+        if is_main:
+            with open(metrics_path, "a") as f:
+                f.write(json.dumps(row) + "\n")
 
     def on_log(it, losses, info):
         log_row({"iter": it, "time": time.time(), **losses, "size": info["size"],
@@ -140,13 +183,17 @@ def run_training(cfg, *, weights_dir: str = "./weights", device=None,
         it = st.step
         # the unit that crosses a multiple of the cadence saves / evals
         if it % tc["save_iter"] < scan_steps and it >= tc["save_iter"]:
-            # joins the previous write, so GC sees every earlier file finished
-            # and skips this one's temporary
-            ckpt.save_step(os.path.join(weights_dir, f"step{it:08d}.npz"), eval_state_dict(st),
-                           os.path.join(weights_dir, "last_state.npz"), st)
-            gc_checkpoints(weights_dir, keep=10)
-            logger.info("saved %s/step%08d.npz", weights_dir, it)
-        if (it % tc["eval_iter"] < scan_steps and it >= tc["eval_iter"]
+            if dcp_ckpt is not None:
+                dcp_ckpt.save(it, st)   # every rank takes part
+            if is_main:
+                # joins the previous write, so GC sees every earlier file
+                # finished and skips this one's temporary
+                ckpt.save_step(os.path.join(weights_dir, f"step{it:08d}.npz"),
+                               eval_state_dict(st),
+                               os.path.join(weights_dir, "last_state.npz"), st)
+                gc_checkpoints(weights_dir, keep=10)
+                logger.info("saved %s/step%08d.npz", weights_dir, it)
+        if (is_main and it % tc["eval_iter"] < scan_steps and it >= tc["eval_iter"]
                 and os.path.exists(cfg.val_path)):
             t0 = time.time()
             params = eval_state_dict(st)
@@ -180,7 +227,8 @@ def run_training(cfg, *, weights_dir: str = "./weights", device=None,
                      scan_steps=scan_steps, on_size=on_size)
 
     host = Prefetcher(train_batches(records, cfg, seed=0, start_iter=start_iter,
-                                    shape_group=scan_steps),
+                                    shape_group=scan_steps, num_shards=dist.world(),
+                                    shard_id=dist.rank()),
                       max_batch=max(tc.get("max_batch", 3), scan_steps))
     try:
         state = step_loop(state, unit_step, DevicePrefetcher(stack_units(host, scan_steps), dev),
@@ -190,7 +238,9 @@ def run_training(cfg, *, weights_dir: str = "./weights", device=None,
     finally:
         host.close()
         ckpt.wait()
-    gc_checkpoints(weights_dir, keep=10)
+    if is_main:
+        gc_checkpoints(weights_dir, keep=10)
+    dist.barrier()   # rank 0's files are whole before any rank reads one (a resume)
     logger.info("done at iter %d", state.step)
     return state
 
@@ -202,7 +252,8 @@ def main(argv: Optional[list] = None) -> TrainState:
     p.add_argument("--config", type=int, default=0, choices=[0, 1, 2])
     p.add_argument("--use_gpu", type=str2bool, default=True,
                    help="False runs on the host CPU")
-    p.add_argument("--ndev", type=int, default=1, help="cards (only 1 is ported)")
+    p.add_argument("--ndev", type=int, default=None,
+                   help="cards, one process each (default: the world size)")
     p.add_argument("--precision", type=str, default="fp32", choices=["fp32", "bf16"],
                    help="bf16 = mixed-precision forward (fp32 masters)")
     p.add_argument("--scan_steps", type=int, default=1,
@@ -212,8 +263,8 @@ def main(argv: Optional[list] = None) -> TrainState:
     cfg = get_config(args.config)
     cfg.train_cfg["precision"] = args.precision
     cfg.train_cfg["scan_steps"] = args.scan_steps
-    return run_training(cfg, weights_dir=args.weights_dir, ndev=args.ndev,
-                        device=None if args.use_gpu else "cpu")
+    with dist.env_group(None if args.use_gpu else "cpu") as device:
+        return run_training(cfg, weights_dir=args.weights_dir, ndev=args.ndev, device=device)
 
 
 if __name__ == "__main__":

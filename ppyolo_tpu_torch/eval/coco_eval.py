@@ -1,13 +1,15 @@
 """COCO evaluation harness (reference tools/cocotools.py).
 
-Counterpart of ``ppyolo_tpu/eval/coco_eval.py`` in one process: a reader
-thread decodes and resizes the next batch while the card runs the current
-one, each image's detections go to a shard ``result_dir/bbox/<id>.json``
-(xywh with the reference's +1 pixel convention, category ids remapped,
-coordinates rounded to 0.1), the merged list to
-``result_dir/bbox_detections.json``, and the built-in COCOeval-compatible
-``coco_metric.evaluate_map`` (or pycocotools, where it is installed) gives
-the 12 stats.  ``type_='test_dev'`` writes the submission json only.
+Counterpart of ``ppyolo_tpu/eval/coco_eval.py``: a reader thread decodes
+and resizes the next batch while the card runs the current one, each
+image's detections go to a shard ``result_dir/bbox/<id>.json`` (xywh with
+the reference's +1 pixel convention, category ids remapped, coordinates
+rounded to 0.1), the merged list to ``result_dir/bbox_detections.json``,
+and the built-in COCOeval-compatible ``coco_metric.evaluate_map`` (or
+pycocotools, where it is installed) gives the 12 stats.
+``type_='test_dev'`` writes the submission json only.  Under a process
+group the ranks split the images and rank 0 merges the shard files
+(``coco_eval(distributed=True)``).
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ import numpy as np
 
 from ..data.coco import CocoJson, category_maps
 from ..data.loader import Prefetcher
+from ..parallel import dist
 
 logger = logging.getLogger(__name__)
 
@@ -111,19 +114,34 @@ def coco_eval(detector, images: List[dict], eval_pre_path: str, anno_file: str,
     ``scan_group > 1`` runs that many full batches as one unit of work
     (``Detector.predict_pipelined``: one graph replay on a card) and the
     remaining batches one by one; the detections and the shard files are
-    the same as with ``scan_group=1``.  Multi-process evaluation
-    (``distributed``) is not ported (ROADMAP §1 item 8)."""
+    the same as with ``scan_group=1``.
+
+    ``distributed=True`` is the collective protocol of
+    ``ppyolo_tpu/eval/coco_eval.py:133-170``, called by every rank of the
+    process group: rank 0 clears ``result_dir``, a barrier, rank r
+    evaluates ``images[r::world]`` into the shared shard directory, a
+    barrier, then rank 0 merges the shard files and scores them and the
+    other ranks return None (``result_dir`` must be on a file system every
+    rank sees).  ``distributed=False`` evaluates every image on the calling
+    rank and waits on no barrier, also under a group: ``train.py``'s
+    periodic eval, which rank 0 runs alone."""
     import cv2
 
-    if distributed:
-        raise NotImplementedError("distributed eval is not ported (ROADMAP §1 item 8)")
+    if distributed and not dist.active():
+        raise ValueError("distributed=True needs an initialised process group")
+    rank, world = (dist.rank(), dist.world()) if distributed else (0, 1)
     clsid2catid = clsid2catid or COCO_CLSID2CATID
     bbox_dir = os.path.join(result_dir, "bbox")
-    if os.path.exists(result_dir):
-        shutil.rmtree(result_dir, ignore_errors=True)
-    os.makedirs(bbox_dir, exist_ok=True)
-    if draw_image:
-        os.makedirs(os.path.join(result_dir, "images"), exist_ok=True)
+    if rank == 0:
+        if os.path.exists(result_dir):
+            shutil.rmtree(result_dir, ignore_errors=True)
+        os.makedirs(bbox_dir, exist_ok=True)
+        if draw_image:
+            os.makedirs(os.path.join(result_dir, "images"), exist_ok=True)
+    all_images = images
+    if distributed:
+        dist.barrier()
+        images = images[rank::world]   # disjoint shards
     n = len(images)
 
     def read_batches():
@@ -194,6 +212,16 @@ def coco_eval(detector, images: List[dict], eval_pre_path: str, anno_file: str,
             fut.result()   # a writer's exception surfaces here
     cost = time.time() - start
     logger.info("eval: %d images in %.2fs, %.1f img/s", n, cost, n / max(cost, 1e-9))
+    if distributed:
+        dist.barrier()
+        if rank != 0:
+            return None
+        # every rank's detections exist only as shard files: merge from
+        # disk in the images' order, the list one process makes
+        all_dets = []
+        for im in all_images:
+            with open(os.path.join(bbox_dir, f"{im['id']}.json")) as f:
+                all_dets.extend(json.load(f))
     merged = os.path.join(result_dir, "bbox_detections.json")
     with open(merged, "w") as f:
         json.dump(all_dets, f)

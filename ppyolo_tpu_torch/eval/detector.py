@@ -9,9 +9,13 @@ layout copy happens.  On a card a predict is one replay of a CUDA graph
 and, for ``predict_pipelined``, group: the host copies the batch into the
 graph's input, replays and copies the detections out (the JAX package's
 jitted ``predict_batch`` and scanned ``predict_pipelined``).  On the CPU
-the same function runs eagerly.  The Detector casts, re-lays and BN-folds
-the model it is given, so it needs a model of its own (never the one being
-trained): ``set_params`` loads new weights into it in place.
+the same function runs eagerly, as it does on a card under a gloo process
+group (which a graph cannot hold).  Under a group the Detector is on its
+rank's card (``cuda:LOCAL_RANK``) and ``predict_sharded`` splits a batch
+over the ranks (``parallel/dist.py::make_sharded_predict``).  The Detector
+casts, re-lays and BN-folds the model it is given, so it needs a model of
+its own (never the one being trained): ``set_params`` loads new weights
+into it in place.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ import numpy as np
 import torch
 
 from ..ops.module import resolve_device
+from ..parallel import dist
 from ..train.graphs import Graphs
 from .optimize import COMPUTE_DTYPES, optimize_for_inference
 
@@ -48,7 +53,8 @@ class Detector:
         self.mean = torch.from_numpy(mean).to(self.device).view(1, 3, 1, 1)
         self.std = torch.from_numpy(std).to(self.device).view(1, 3, 1, 1)
         self._graphs = {}   # group -> Graphs, all in one memory pool
-        self._pool = torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
+        self._capture = dist.can_capture(self.device)
+        self._pool = torch.cuda.graph_pool_handle() if self._capture else None
 
     def set_params(self, state_dict) -> None:
         """Load new weights (the port's keys, fp32, any device), BN folded
@@ -91,7 +97,7 @@ class Detector:
     def _run(self, pimages: np.ndarray, im_sizes: np.ndarray, group: int) -> np.ndarray:
         images = torch.from_numpy(np.ascontiguousarray(pimages))
         sizes = torch.from_numpy(np.ascontiguousarray(im_sizes, np.float32))
-        if self.device.type != "cuda":
+        if not self._capture:
             return self._predict(images.to(self.device), sizes.to(self.device),
                                  group).cpu().numpy()
         if group not in self._graphs:
@@ -106,6 +112,12 @@ class Detector:
         """pimages [B,S,S,3] preprocessed; im_sizes [B,2] (h, w).
         Returns [B, keep_top_k, 6] numpy (label, score, x0, y0, x1, y1)."""
         return self._run(pimages, im_sizes, 1)
+
+    def predict_sharded(self, pimages: np.ndarray, im_sizes: np.ndarray) -> np.ndarray:
+        """``predict_batch`` of a batch every rank of the process group holds,
+        each rank predicting its contiguous slice; every rank returns all
+        [B, keep_top_k, 6] rows.  Every rank must call it."""
+        return dist.make_sharded_predict(self)(pimages, im_sizes)
 
     def predict_pipelined(self, pimages: np.ndarray, im_sizes: np.ndarray, *,
                           group: int) -> np.ndarray:

@@ -13,7 +13,7 @@ import torch
 from torch import nn
 
 from ..ops.conv import ConvNormAct, param_policy_tree
-from ..ops.module import flatten_tree
+from ..ops.module import checkpointed, flatten_tree
 from .head import YOLOv3Head
 from .resnet_vd import ResNet18Vd, ResNet50Vd
 
@@ -51,12 +51,15 @@ class PPYOLO(nn.Module):
         """{state_dict key: ParamPolicy}, the JAX ``flat_policy``."""
         return flatten_tree(self.param_policy())
 
-    def forward(self, images: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> List[torch.Tensor]:
+    def forward(self, images: torch.Tensor, generator: Optional[torch.Generator] = None,
+                remat: bool = False) -> List[torch.Tensor]:
         """Raw per-level head maps [N, C_l, S_l, S_l] with gradients (the
         JAX ``outputs``, ``ppyolo.py:66-69``); in train mode BN uses batch
-        statistics and DropBlock draws from ``generator``."""
-        return self.head.get_outputs(self.backbone(images), generator)
+        statistics and DropBlock draws from ``generator``.  ``remat``
+        recomputes the backbone's activations in the backward instead of
+        keeping them (``train_step.py:120-132``)."""
+        feats = checkpointed(self.backbone, images) if remat else self.backbone(images)
+        return self.head.get_outputs(list(feats), generator)
 
     @torch.no_grad()
     def outputs(self, images: torch.Tensor) -> List[torch.Tensor]:

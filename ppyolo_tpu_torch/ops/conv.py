@@ -5,7 +5,8 @@ policy (``param_policy``) and freeze flag.  Parameter names give the JAX
 param tree's paths:
 ``conv.weight`` / ``conv.bias`` for a dense conv, ``conv.dcn_weight`` and
 ``conv.conv_offset.{weight,bias}`` for DCNv2, ``bn.{weight,bias,
-running_mean,running_var}`` for BN.  Weights are OIHW; activations NCHW in
+running_mean,running_var}`` for BN; ``norm="sync_bn"`` averages the batch
+statistics over the ranks of a process group (``ops/module.py::BatchNorm``).  Weights are OIHW; activations NCHW in
 ``channels_last`` memory.  Dense convs go to ``F.conv2d`` (cuDNN on the
 card), as the JAX package leaves them to XLA; DCNv2 goes to
 ``ops/deform_conv.py::deform_conv2d`` (the Hopper kernels on the card,
@@ -70,7 +71,7 @@ class ConvNormAct(nn.Module):
         self.bias_lr_mult = lr_mult if bias_lr_mult is None else bias_lr_mult
         self.freeze_norm = freeze_norm
         self.conv = _ConvParams(cin, cout, ksize, bias, use_dcn)
-        self.bn = BatchNorm(cout) if norm is not None else None
+        self.bn = BatchNorm(cout, sync=norm == "sync_bn") if norm is not None else None
         self._packed = None
         self._packed_key = None
         self.freeze(False)

@@ -9,12 +9,17 @@ those paths; ``BatchNorm`` registers no ``num_batches_tracked``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed.nn.functional as dist_fn
 from torch import nn
+
+from ..parallel import dist
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1  # torch convention: running = (1-m)*running + m*batch
@@ -97,13 +102,52 @@ def refresh_caches(model: nn.Module) -> None:
 
 def resolve_device(device: Optional[str | torch.device] = None) -> torch.device:
     """The device an entry point runs on: ``cuda`` unless the caller asks
-    for something else.  Raises when CUDA is asked for (or defaulted to)
-    and there is no card -- it never falls back to the CPU."""
+    for something else, and under a process group ``cuda:LOCAL_RANK`` for
+    a cuda device without an index.  Raises when CUDA is asked for (or
+    defaulted to) and there is no card -- it never falls back to the CPU."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device available; pass device='cpu' to run on the CPU")
+    if dev.type == "cuda" and dev.index is None and dist.active():
+        dev = torch.device("cuda", dist.local_rank())
     return dev
+
+
+_RECOMPUTE = threading.local()
+
+
+@contextlib.contextmanager
+def _recomputing():
+    """Marks the thread as rerunning a checkpointed forward."""
+    before = getattr(_RECOMPUTE, "on", False)
+    _RECOMPUTE.on = True
+    try:
+        yield
+    finally:
+        _RECOMPUTE.on = before
+
+
+def checkpointed(module: nn.Module, x: torch.Tensor) -> tuple:
+    """``tuple(module(x))`` whose activations are recomputed in the backward
+    instead of kept (``jax.checkpoint``; ``torch.utils.checkpoint``,
+    non-reentrant).  The module's parameters enter as explicit inputs, so
+    the recompute, which runs after a ``functional_call`` around the
+    forward has put the masters back, uses the tensors the forward used
+    (the bf16 copies of a mixed-precision step).  While recomputing, BN
+    does not update its running statistics again: one momentum update a
+    step, as without the checkpoint.  ``module`` draws no random numbers,
+    so no generator state is kept."""
+    from torch.func import functional_call
+    from torch.utils.checkpoint import checkpoint
+
+    names, values = zip(*module.named_parameters())
+
+    def run(inp, *params):
+        return tuple(functional_call(module, dict(zip(names, params)), (inp,)))
+
+    return checkpoint(run, x, *values, use_reentrant=False, preserve_rng_state=False,
+                      context_fn=lambda: (contextlib.nullcontext(), _recomputing()))
 
 
 class BatchNorm(nn.Module):
@@ -113,7 +157,13 @@ class BatchNorm(nn.Module):
     ``x.float()``, ``var = max(E[x^2] - E[x]^2, 0)``, and updates the
     running stats in place with the torch convention (unbiased var,
     momentum 0.1).  A frozen layer does the same: freezing stops gradients
-    only (``conv.py:305-308``).
+    only (``conv.py:305-308``).  With ``sync`` (``norm="sync_bn"``) and a
+    process group, ``E[x]`` and ``E[x^2]`` are averaged over the ranks by
+    one differentiable all-reduce of a ``[2C]`` tensor (its backward is an
+    all-reduce too: ``conv.py:138-148``'s pmean) and the unbiased factor
+    counts ``n × world`` values; this holds at world 1 as well.  Without
+    ``sync`` each rank keeps statistics of its own batch, as each JAX
+    replica does under ``norm="bn"``.
 
     Eval mode is one fused pass, ``x * k + b`` with ``k = weight *
     rsqrt(var + eps)`` and ``b = bias - mean * k`` computed on the [C]
@@ -123,8 +173,9 @@ class BatchNorm(nn.Module):
     one, and the results differ only in rounding.  (k, b) are cached until
     a parameter or buffer changes (new storage, in-place write, dtype)."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, sync: bool = False):
         super().__init__()
+        self.sync = sync
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
@@ -170,6 +221,11 @@ class BatchNorm(nn.Module):
         dims = (0, 2, 3)
         m = x32.mean(dims)
         msq = x32.square().mean(dims)
+        n = x.shape[0] * x.shape[2] * x.shape[3]
+        if self.sync and dist.active():
+            stats = dist_fn.all_reduce(torch.cat([m, msq])) / dist.world()
+            m, msq = stats.split(m.shape[0])
+            n *= dist.world()
         v = torch.maximum(msq - m.square(), torch.zeros_like(m))  # JAX's tie rule
         # (x - m) * (rsqrt(v + eps) * weight) + bias: the JAX expression with
         # the two [C] factors multiplied first, so autograd keeps one
@@ -178,7 +234,8 @@ class BatchNorm(nn.Module):
         k = torch.rsqrt(v + BN_EPS) * self.weight
         y = torch.addcmul(self.bias.view(shape).to(acc), x32 - m.view(shape),
                           k.view(shape))
-        n = x.shape[0] * x.shape[2] * x.shape[3]
+        if getattr(_RECOMPUTE, "on", False):   # the forward already updated them
+            return y.to(x.dtype)
         with torch.no_grad():
             unbiased = v * (n / max(n - 1, 1))
             for buf, stat in ((self.running_mean, m), (self.running_var, unbiased)):

@@ -33,6 +33,18 @@ The launch wrappers count a capture's calls apart (``ops/_build.py``): each
 graph keeps those counts and adds them to the wrappers' ``launches`` at
 every replay, so ``launches`` counts the kernels that ran.
 
+Under a process group the collectives of ``fn`` (the gradient bucket,
+sync-BN's statistics) are captured with it, so a replay runs them too.
+That needs NCCL: its communicator comes into being in the warm-up run,
+before the capture, and every rank captures at the same unit (the size
+schedule ignores the shard).  A gloo group stages CUDA collectives through
+the host, which a graph cannot hold: ``Graphs`` on a card raises under
+gloo unless made with ``capture=False``, which runs ``fn`` eagerly
+(``parallel/dist.py::can_capture`` says which).  Under a group the capture
+checks only its own thread's CUDA calls (``capture_error_mode=
+"thread_local"``): NCCL's watchdog thread polls events of the warm-up
+run's collectives while the capture runs.
+
 All graphs of one ``Graphs`` (and of those made with the same ``pool``)
 share one memory pool: only one of them runs at a time, so they can share
 their temporaries, and the pool peaks at the largest unit instead of the
@@ -49,6 +61,7 @@ from torch import nn
 
 from ..ops import _build
 from ..ops.module import refresh_caches
+from ..parallel import dist
 
 WARMUP_ITERS = 1
 Inputs = Dict[str, Any]   # name -> tensor, or a tuple of tensors
@@ -89,12 +102,13 @@ class Graphs:
     share with other ``Graphs`` (default: one of its own); ``model`` is
     the module whose parameter-derived caches ``fn`` reads.  ``captures``
     holds the capture seconds by shape key.  Each capture first runs ``fn``
-    WARMUP_ITERS times eagerly."""
+    WARMUP_ITERS times eagerly.  ``capture=False`` runs ``fn`` eagerly on a
+    card too (under a gloo group, which raises otherwise)."""
 
     def __init__(self, fn: Callable[[Inputs], Dict[str, torch.Tensor]], device, *,
                  state: Optional[Callable[[], Dict[str, torch.Tensor]]] = None,
                  generators: Sequence[torch.Generator] = (), pool=None,
-                 model: Optional[nn.Module] = None):
+                 model: Optional[nn.Module] = None, capture: bool = True):
         self.fn = fn
         self.device = torch.device(device)
         self.state = state
@@ -102,11 +116,14 @@ class Graphs:
         # shape key -> (graph, static inputs, outputs, {wrapper: calls it recorded})
         self.graphs: Dict[tuple, Tuple[Any, Inputs, Dict[str, torch.Tensor], dict]] = {}
         self.captures: Dict[tuple, float] = {}
-        self.on_cuda = self.device.type == "cuda"
+        self.captures_graphs = capture and self.device.type == "cuda"
+        if self.captures_graphs and dist.backend() == "gloo":
+            raise RuntimeError("a gloo process group cannot be captured in a CUDA graph: "
+                               "run eagerly (capture=False) or use NCCL")
         self.model = model
         self._watched = [] if model is None else list(model.state_dict(keep_vars=True).values())
         self._versions = None
-        if self.on_cuda:
+        if self.captures_graphs:
             self.pool = torch.cuda.graph_pool_handle() if pool is None else pool
             self.stream = torch.cuda.Stream(self.device)
 
@@ -132,7 +149,7 @@ class Graphs:
             return 0.0
         t0 = time.perf_counter()
         snap = self._snapshot()
-        if not self.on_cuda:
+        if not self.captures_graphs:
             self.fn(inputs)
             self._restore(snap)
         else:
@@ -148,7 +165,9 @@ class Graphs:
             for g in self.generators:
                 graph.register_generator_state(g)
             before = {fn: fn.captured for fn in _build.COUNTED}
-            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+            mode = "thread_local" if dist.active() else "global"
+            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
+                                  capture_error_mode=mode):
                 out = self.fn(static)
             recorded = {fn: fn.captured - before.get(fn, 0) for fn in _build.COUNTED}
             self.graphs[key] = (graph, static, out, {f: n for f, n in recorded.items() if n})
@@ -157,7 +176,7 @@ class Graphs:
         return self.captures[key]
 
     def __call__(self, inputs: Inputs) -> Dict[str, torch.Tensor]:
-        if not self.on_cuda:
+        if not self.captures_graphs:
             return self.fn(inputs)
         key = shape_key(inputs)
         if key not in self.graphs:
@@ -185,9 +204,11 @@ class GraphedStep:
     function of ``n_steps`` stacked batches), replayed as one CUDA graph per
     unit shape on the card.  Bound to one ``state`` and ``generator``: the
     graphs read and write their tensors.  The host step count advances by
-    ``n_steps`` a unit, as the graph advances the device count."""
+    ``n_steps`` a unit, as the graph advances the device count.
+    ``capture=False`` runs the unit eagerly on a card (``Graphs``)."""
 
-    def __init__(self, fn, state, generator: Optional[torch.Generator], *, n_steps: int = 1):
+    def __init__(self, fn, state, generator: Optional[torch.Generator], *, n_steps: int = 1,
+                 capture: bool = True):
         self.state, self.generator, self.n_steps = state, generator, int(n_steps)
 
         def unit_fn(unit):
@@ -197,7 +218,7 @@ class GraphedStep:
             return losses
 
         self.graphs = Graphs(unit_fn, state.step_t.device, state=state.tensors,
-                             generators=(generator,), model=state.model)
+                             generators=(generator,), model=state.model, capture=capture)
 
     def prepare(self, unit: Inputs) -> float:
         """Capture the graph of ``unit``'s shape (``warmup_shapes``); the

@@ -10,7 +10,9 @@ ends on a ``train_cfg['log_iter']`` boundary (JAX's ``will_log`` rule,
 ``train.py:269-270``) it reads the unit's last losses (a sync with the
 card) and hands them to ``on_log`` with the window's seconds per step.
 ``after_step`` runs after every unit (the entry's checkpoints and evals);
-its time is kept out of the next window.
+its time is kept out of the next window.  Under a process group only rank
+0 reads and logs the losses, which the step averaged over the ranks
+(``train.py``'s ``is_main``); every rank steps.
 
 ``run_training`` drives it on batches the caller supplies (an iterator of
 dicts of numpy arrays: 'image' uint8 NHWC, 'gt_bbox', 'gt_class',
@@ -28,6 +30,7 @@ from ..data.loader import DevicePrefetcher, stack_units
 from ..models import PPYOLO
 from ..ops.ema import ema_apply
 from ..ops.module import resolve_device
+from ..parallel import dist
 from .graphs import GraphedStep
 from .train_step import TrainState, init_train_state, make_multi_train_step, make_train_step
 
@@ -43,15 +46,17 @@ def will_log(step: int, n_steps: int, log_every: int) -> bool:
 
 def make_unit_step(model, cfg, state: TrainState, generator: Optional[torch.Generator], *,
                    n_steps: int = 1, compute_dtype: torch.dtype = torch.float32,
-                   target_pipeline: Optional[str] = None) -> GraphedStep:
+                   target_pipeline: Optional[str] = None,
+                   capture: bool = True) -> GraphedStep:
     """The unit of work of a run: one train step, or ``n_steps`` of them
-    (``make_multi_train_step``), as a ``GraphedStep`` on ``state``."""
+    (``make_multi_train_step``), as a ``GraphedStep`` on ``state``
+    (eager on a card with ``capture=False``)."""
     if n_steps > 1:
         fn = make_multi_train_step(model, cfg, n_steps=n_steps, compute_dtype=compute_dtype,
                                    target_pipeline=target_pipeline)
     else:
         fn = make_train_step(model, cfg, compute_dtype=compute_dtype)
-    return GraphedStep(fn, state, generator, n_steps=n_steps)
+    return GraphedStep(fn, state, generator, n_steps=n_steps, capture=capture)
 
 
 def step_loop(state: TrainState, step_fn, units: Iterable[Tuple[Dict, Dict]],
@@ -68,12 +73,13 @@ def step_loop(state: TrainState, step_fn, units: Iterable[Tuple[Dict, Dict]],
     time of a step since the last log) and ``imgs_per_sec``."""
     t0, n_done = time.time(), 0
     units = iter(units)
+    is_main = dist.rank() == 0
     while state.step < max_iters:
         item = next(units, None)
         if item is None:
             break
         unit = item[0]
-        logs = will_log(state.step, n_steps, log_every)
+        logs = is_main and will_log(state.step, n_steps, log_every)
         state, losses = step_fn(state, unit, generator)
         n_done += n_steps
         if logs:
@@ -118,7 +124,8 @@ def run_training(cfg, batches: Iterable[Dict], *, device=None,
     n_steps = int(tc.get("scan_steps", 1))
     generator = torch.Generator(device=dev).manual_seed(seed + 1)
     unit_step = make_unit_step(model, cfg, state, generator, n_steps=n_steps,
-                               compute_dtype=PRECISIONS[tc.get("precision", "fp32")])
+                               compute_dtype=PRECISIONS[tc.get("precision", "fp32")],
+                               capture=dist.can_capture(dev))
     state = step_loop(
         state, unit_step, DevicePrefetcher(stack_units(batches, n_steps), dev), generator,
         max_iters=int(tc["max_iters"] if max_iters is None else max_iters),

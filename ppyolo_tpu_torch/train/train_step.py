@@ -21,6 +21,14 @@ flow through the casts back to the fp32 masters; the BN running stats are
 not cast (they stay the module's fp32 buffers).  Targets are built on the
 device outside the autograd graph; uint8 images are normalized on the
 device.
+
+Under a process group (``parallel/dist.py``) each rank steps on its own
+batch: the gradients and the loss terms are averaged over the ranks in
+one all-reduce (``train_step.py:167-169``), every rank applies the same
+update, and DropBlock's generator is seeded alike on every rank (JAX
+replicates the rng, ``mesh.py:67-72``), so every replica draws the same
+mask.  ``train_cfg['remat']`` recomputes the backbone's activations in the
+backward (``ops/module.py::checkpointed``).
 """
 from __future__ import annotations
 
@@ -33,6 +41,7 @@ from torch.func import functional_call
 from ..data.targets import gt2yolo_targets_device
 from ..ops.ema import ema_update
 from ..ops.module import device_constant
+from ..parallel import dist
 from .losses import IouAwareLoss, IouLoss, YOLOv3Loss, total_loss
 from .lr_schedule import DeviceLR
 from .optimizer import SGD
@@ -119,14 +128,19 @@ def make_target_builder(cfg):
 
 
 def make_train_step(model: torch.nn.Module, cfg, *,
-                    compute_dtype: torch.dtype = torch.float32):
+                    compute_dtype: torch.dtype = torch.float32,
+                    remat: Optional[bool] = None):
     """Returns ``step_fn(state, batch, generator=None) -> (state, losses)``.
 
     batch (tensors on the model's device): 'image' [N,H,W,3] uint8 (or
     normalized float), 'gt_bbox' [N,50,4] normalized xywh, and either
     'targets' (per-level [N,S,S,an,6+C]) or 'gt_class' / 'gt_score' for the
     device-side builder.  ``generator`` feeds DropBlock.  losses holds the
-    loss terms, 'total_loss' and 'lr' (0-d device tensors)."""
+    loss terms, 'total_loss' and 'lr' (0-d device tensors), averaged over
+    the ranks when a process group is initialised.  ``remat`` (default
+    ``cfg.train_cfg['remat']``, off) checkpoints the backbone."""
+    if remat is None:
+        remat = bool(cfg.train_cfg.get("remat", False))
     loss_obj = build_loss(cfg)
     lr_cfg = cfg.learningRate
     device_lr: Dict[torch.device, DeviceLR] = {}
@@ -164,18 +178,26 @@ def make_train_step(model: torch.nn.Module, cfg, *,
             targets = batch_targets(batch)
         images = prep_images(batch["image"])
         if compute_dtype == torch.float32:
-            outputs = m(images, generator)
+            outputs = m(images, generator, remat)
         else:
             cast = {k: p.to(compute_dtype) for k, p in m.named_parameters()}
-            outputs = functional_call(m, cast, (images,), {"generator": generator})
+            outputs = functional_call(m, cast, (images,),
+                                      {"generator": generator, "remat": remat})
         losses = loss_obj(outputs, targets, batch["gt_bbox"], mask_anchors, num_classes)
         total = total_loss(losses)
         keys = list(state.trainable)
         grads = torch.autograd.grad(total, [state.trainable[k] for k in keys],
                                     allow_unused=True)
         # the JAX grad of an unused leaf is 0
-        grads = {k: torch.zeros_like(state.trainable[k]) if g is None else g
-                 for k, g in zip(keys, grads)}
+        grads = [torch.zeros_like(state.trainable[k]) if g is None else g
+                 for k, g in zip(keys, grads)]
+        if dist.active():
+            names = list(losses)
+            reduced = dist.all_reduce_mean(grads + [losses[k].detach() for k in names])
+            grads = reduced[:len(grads)]
+            losses = dict(zip(names, reduced[len(grads):]))
+            total = total_loss(losses)   # JAX sums the averaged terms again
+        grads = dict(zip(keys, grads))
         dev = state.step_t.device
         if dev not in device_lr:
             device_lr[dev] = DeviceLR(lr_cfg, dev)

@@ -14,7 +14,8 @@ synthetic COCO set at 64 and 96 px.  Held here:
   a resume and 2 more steps equal 4 straight steps bitwise (DropBlock off,
   as ``tests/test_integration.py`` holds the JAX entry);
 * ``run_eval`` returns 12 finite stats and draws; the inputs not ported
-  raise ``NotImplementedError``.
+  raise ``NotImplementedError``, and an ``ndev`` other than the world
+  size or an unknown checkpoint backend ``ValueError``.
 """
 import json
 import os
@@ -279,12 +280,16 @@ def test_run_eval_returns_stats_and_draws(dataset, trained, tmp_path):
 @pytest.mark.parametrize("case", ["ndev", "orbax", "pt_weights", "eval_ndev", "eval_pt_weights",
                                   "distributed_eval", "cli_ndev"])
 def test_inputs_not_ported_raise(dataset, tmp_path, case):
+    """The inputs the port refuses, before any file is written: ``.pt``
+    weights (not ported), an ``ndev`` other than the world size (1 without
+    a process group), a checkpoint backend other than npz/orbax, and a
+    distributed eval without a group."""
     cfg = entry_cfg(dataset)
     wdir = str(tmp_path)
     calls = {
         "ndev": lambda: train_entry.run_training(cfg, weights_dir=wdir, device="cpu", ndev=2),
         "orbax": lambda: train_entry.run_training(
-            entry_cfg(dataset, ckpt_backend="orbax"), weights_dir=wdir, device="cpu"),
+            entry_cfg(dataset, ckpt_backend="tensorstore"), weights_dir=wdir, device="cpu"),
         "pt_weights": lambda: train_entry.run_training(
             entry_cfg(dataset, model_path="ppyolo_2x.pt"), weights_dir=wdir, device="cpu"),
         "eval_ndev": lambda: eval_entry.run_eval(cfg, device="cpu", ndev=2, result_dir=wdir),
@@ -295,7 +300,12 @@ def test_inputs_not_ported_raise(dataset, tmp_path, case):
         "cli_ndev": lambda: train_entry.main(["--config", "1", "--use_gpu", "false",
                                               "--ndev", "2"]),
     }
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    raises = {"pt_weights": (NotImplementedError, "ROADMAP"),
+              "eval_pt_weights": (NotImplementedError, "ROADMAP"),
+              "orbax": (ValueError, "tensorstore"),
+              "distributed_eval": (ValueError, "process group")}
+    exc, match = raises.get(case, (ValueError, "--ndev 2 differs from the world size 1"))
+    with pytest.raises(exc, match=match):
         calls[case]()
     assert not os.path.exists(os.path.join(wdir, "metrics.jsonl"))
 

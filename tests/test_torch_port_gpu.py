@@ -602,3 +602,83 @@ def test_graphed_predicts_follow_a_direct_load_into_the_model():
     got = det.predict_batch(images, sizes)
     np.testing.assert_array_equal(got, ref.predict_batch(images, sizes))
     assert not np.array_equal(got, first)
+
+
+def _group(backend, tmp_path):
+    """A one-rank process group of ``backend`` in this process."""
+    import torch.distributed as tdist
+
+    tdist.init_process_group(backend, init_method=f"file://{tmp_path / ('pg_' + backend)}",
+                             rank=0, world_size=1)
+
+
+@pytest.mark.gpu
+def test_graphs_refuse_a_gloo_group_on_the_card(tmp_path):
+    """gloo stages CUDA collectives through the host, which a CUDA graph
+    cannot hold: under a gloo group ``Graphs`` on a card raises, and runs
+    eagerly with ``capture=False``, the choice ``can_capture`` makes."""
+    import torch.distributed as tdist
+
+    from ppyolo_tpu_torch.parallel import dist
+    from ppyolo_tpu_torch.train.graphs import Graphs
+
+    dev = _cuda_or_skip()
+    _group("gloo", tmp_path)
+    try:
+        assert not dist.can_capture(dev)
+        with pytest.raises(RuntimeError, match="gloo"):
+            Graphs(lambda inp: {"y": inp["x"] * 2}, dev)
+        eager = Graphs(lambda inp: {"y": inp["x"] * 2}, dev, capture=False)
+        x = torch.arange(4.0, device=dev)
+        assert torch.equal(eager({"x": x})["y"], x * 2) and not eager.graphs
+    finally:
+        tdist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_sync_bn_graphed_steps_under_nccl_equal_no_group(tmp_path):
+    """Two bf16 ``sync_bn`` steps replayed from a CUDA graph captured under
+    a one-rank NCCL group (the gradient bucket and every BN's statistics
+    all-reduced inside the graph) equal two without a group bit for bit;
+    a remat step's losses equal the plain step's and its BN statistics take
+    one update."""
+    import torch.distributed as tdist
+
+    from ppyolo_tpu_torch.models import PPYOLO
+    from ppyolo_tpu_torch.parallel import dist
+    from ppyolo_tpu_torch.train.graphs import GraphedStep
+    from ppyolo_tpu_torch.train.train_step import init_train_state, make_train_step
+
+    _cuda_or_skip()
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    cfg = _mini2x_cfg()
+    cfg.backbone = dict(cfg.backbone, norm_type="sync_bn")
+    cfg.head = dict(cfg.head, norm_type="sync_bn", drop_block=True)
+    batches = [_gpu_batch(60 + i, 2, 96) for i in range(2)]
+
+    def run(remat=False, n=2):
+        model = PPYOLO.from_config(cfg).init_parameters(torch.Generator().manual_seed(0))
+        model.to(device="cuda", memory_format=torch.channels_last)
+        state = init_train_state(model, cfg)
+        unit = GraphedStep(make_train_step(model, cfg, compute_dtype=torch.bfloat16,
+                                           remat=remat),
+                           state, torch.Generator(device="cuda").manual_seed(3))
+        losses = [{k: v.clone() for k, v in unit(state, b)[1].items()} for b in batches[:n]]
+        return losses, {k: v.clone() for k, v in state.tensors().items()}, unit
+
+    want, want_state, keep = run()
+    _group("nccl", tmp_path)
+    try:
+        assert dist.can_capture(torch.device("cuda")) and dist.backend() == "nccl"
+        got, got_state, keep_g = run()
+        remat, remat_state, keep_r = run(remat=True, n=1)
+    finally:
+        tdist.destroy_process_group()
+    for w, g in zip(want, got):
+        assert all(torch.equal(g[k], w[k]) for k in w)
+    assert all(torch.equal(got_state[k], v) for k, v in want_state.items())
+    _, one_state, keep_1 = run(n=1)
+    np.testing.assert_allclose(float(remat[0]["total_loss"]), float(want[0]["total_loss"]),
+                               rtol=1e-5)
+    running = [k for k in one_state if "running_" in k]
+    assert running and all(torch.equal(remat_state[k], one_state[k]) for k in running)
