@@ -22,6 +22,14 @@ Phases, one JSON line each; any failure exits non-zero:
                events over warm launches beside the plain version and the
                bound (989 TFLOP/s bf16, 67 TFLOP/s fp32, 3.35 TB/s); K4
                also beside one cuDNN ``F.conv2d`` call (``library_ms``).
+               K5 (the int8 conv) at every int8 conv shape of ppyolo_2x@608
+               b8 (65 convs, 32 shapes, 28 (k, Cin, Cout) classes, read by
+               hooks in one forward) bit-equal to ``quantized_conv2d_plain``
+               with the dynamic scale and a static one that clips, timed
+               beside the plain version, cuDNN's bf16 ``F.conv2d`` of the
+               shape (``library_ms``) and ``torch._int_mm`` on the 1x1s it
+               takes; K6 (the greedy NMS keep) at b8, k = 500 bit-equal to
+               the plain fixpoint; bounds at 1,979 TOP/s int8.
                Weights are packed once, outside the timed window.  K1 and
                K3 are timed inside a CUDA graph of 20 calls
                (``kernel_ab.graph_ms``: their wrappers' host work outlasts
@@ -63,6 +71,23 @@ Phases, one JSON line each; any failure exits non-zero:
                batch, device ms and idle share of eager, graphed and
                pipelined serving, K1 and K2 per batch from each trace (and
                the counters equal to each trace's).
+6c. int8_serving -- ppyolo_2x@608 b8 (BN calibrated as in serving) through
+               ``Detector(precision="int8")``, graph replays: K1 3, K2 1 and K5
+               65 launches a batch (counted, and in a trace); img/s in int8,
+               bf16, bf16, int8 windows, device ms and idle share of each;
+               graphed bit-equal to eager; ``calibrate`` on one batch pins 65
+               fp32 act scales and sets the graph aside, the next batch
+               captures anew, bit-equal to eager again, static serving timed;
+               the card's int8 head maps within 0.2 (relative L2) of its bf16
+               maps (identity BN, 2 x 160 px; twice the CPU test's bound).
+6d. multiclass -- the same int8 model with ``nms_type='multiclass_nms'``:
+               K6 once a batch beside K1, K2 and K5, graphed bit-equal to
+               eager, img/s and device ms.
+6e. serving_entries -- ``entry.demo`` at int8 on 16 synthetic jpgs (drawn
+               images, fps, device ms) and ``entry.test_dev`` at int8 on the
+               same images (the submission json written and parsed), through
+               their ``main`` with ``--config 0`` pointed at the synthetic
+               set; K1, K2 and K5 launched 3 : 1 : 65.
 7. training -- ppyolo_2x at full width and depth with ``freeze_at=0``
                (every stage trains, so the DCN backward runs), bf16 mixed
                precision, EMA and DropBlock on, batch 8 at 608x608 on
@@ -166,6 +191,7 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core peak
+PEAK_INT8_OPS = 1979e12      # H100 SXM dense int8 tensor-core peak
 PEAK_FP32_FLOPS = 67e12      # H100 SXM fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
 TOL = 0.02                   # max-abs error / max-abs of the plain output
@@ -198,9 +224,19 @@ GLOO_STEPS = 2                   # lockstep steps of each of the 2 gloo ranks
 GLOO_TIMEOUT_S = 600             # the gloo ranks' wait, after which both are killed
 CARDS_STEPS = 4                  # graphed steps a rank with one rank on every card
 CARDS_TIMEOUT_S = 900            # the card ranks' wait, after which all are killed
+INT8_CONVS, INT8_CLASSES = 65, 28  # int8 convs of ppyolo_2x, and their (k, Cin, Cout) classes
+# tests/test_torch_port_int8.py: the port's int8 head maps lie 4.2e-2 to
+# 7.2e-2 (relative L2 by level) from its bf16 maps on the CPU, gated there at
+# INT8_BF16_GAP; the card's int8-vs-bf16 maps are held at twice that bound
+# (another model's random weights, the card's rounding order)
+INT8_BF16_GAP, INT8_GAP_FACTOR = 0.1, 2.0
+INT8_WINDOW_BATCHES = 20         # timed batches per serving window (int8, bf16, bf16, int8)
+MC_BATCHES = 6                   # multiclass-NMS batches after one warm-up
+NMS_B, NMS_K = BATCH, 500        # K6's check: b8, k = nms_top_k
+DEMO_IMAGES = 16                 # synthetic jpgs through entry.demo and entry.test_dev
 # the path whose run gives each kernel's ``launches``
 MAIN_PATH = {"dcn_fwd": "serving", "fused_stem": "serving", "dcn_bwd": "training",
-             "conv_s2": "probe"}
+             "conv_s2": "probe", "conv_int8": "int8_serving", "nms_keep": "multiclass"}
 
 
 def emit(obj) -> None:
@@ -240,12 +276,14 @@ def wrappers() -> dict:
     """Each kernel's launch wrapper: ``launches`` counts its kernel's
     launches (a CUDA graph adds the calls it recorded at each replay),
     ``captured`` the calls recorded into graphs."""
+    from ppyolo_tpu_torch.ops.conv_int8 import quantized_conv2d
     from ppyolo_tpu_torch.ops.deform_conv_cuda import dcn_bwd, dcn_fwd
+    from ppyolo_tpu_torch.ops.matrix_nms import nms_keep
     from ppyolo_tpu_torch.ops.stem import fused_stem
     from ppyolo_tpu_torch.ops.strided_conv import conv_s2
 
     return {"dcn_fwd": dcn_fwd, "dcn_bwd": dcn_bwd, "fused_stem": fused_stem,
-            "conv_s2": conv_s2}
+            "conv_s2": conv_s2, "conv_int8": quantized_conv2d, "nms_keep": nms_keep}
 
 
 def zero_counts() -> None:
@@ -321,7 +359,8 @@ def occupancy(name: str, *args: int) -> dict:
     from ppyolo_tpu_torch.ops import _build
 
     fn = {"conv_s2": "conv_s2_bf16_blocks_per_sm", "fused_stem": "fused_stem_blocks_per_sm",
-          "dcn_fwd": "dcn_fwd_blocks_per_sm", "dcn_bwd": "dcn_bwd_blocks_per_sm"}[name]
+          "dcn_fwd": "dcn_fwd_blocks_per_sm", "dcn_bwd": "dcn_bwd_blocks_per_sm",
+          "conv_int8": "conv_int8_blocks_per_sm"}[name]
     blocks = getattr(_build.load(name), fn)(*args)
     if blocks <= 0:
         raise RuntimeError(f"{fn}: cudaError {-blocks}")
@@ -454,6 +493,8 @@ def phase_kernels():
         max_abs_err=acc["max_abs_err"], **stats)
     rows["dcn_bwd"] = kernel_k3(gen, dev)
     rows["conv_s2"] = kernel_k4(gen, dev)
+    rows["conv_int8"] = kernel_k5(gen, dev)
+    rows["nms_keep"] = kernel_k6(gen, dev)
     return rows
 
 
@@ -505,6 +546,169 @@ def kernel_k4(gen, dev) -> dict:
         tflops=flops_pair / k4["ms"] / 1e9, x_bound=k4["ms"] / k4["bound_ms"],
         x_library=k4["ms"] / k4["library_ms"], occupancy=occupancy("conv_s2"),
         shapes=shapes, **k4)
+
+
+def int8_conv_shapes(cfg):
+    """The int8 convs of ``cfg``'s model served at SIZE, batch BATCH: the
+    convs ``quantize_params_int8`` quantizes, each one's input read by a
+    hook in one bf16 forward on the card.  Returns ([(C, H, W, Co, k,
+    stride, convs of that shape)], the number of int8 convs)."""
+    import torch
+    from ppyolo_tpu_torch.eval.optimize import quantize_params_int8
+    from ppyolo_tpu_torch.models import PPYOLO
+    from ppyolo_tpu_torch.ops.conv import ConvNormAct
+
+    model = PPYOLO.from_config(cfg)
+    q = quantize_params_int8(model.state_dict())
+    mods = [m for n, m in model.named_modules() if isinstance(m, ConvNormAct)
+            and f"{n}.conv.weight_scale" in q]
+    found = {}
+
+    def hook(m, inp):
+        _, c, h, w = inp[0].shape
+        key = (c, h, w, m.cout, m.ksize, m.stride)
+        found[key] = found.get(key, 0) + 1
+
+    hooks = [m.register_forward_pre_hook(hook) for m in mods]
+    model = model.to("cuda", torch.bfloat16, memory_format=torch.channels_last).eval()
+    x = torch.zeros(1, 3, SIZE, SIZE, device="cuda", dtype=torch.bfloat16)
+    model.outputs(x.contiguous(memory_format=torch.channels_last))
+    for h in hooks:
+        h.remove()
+    if sum(found.values()) != len(mods):
+        raise AssertionError(f"{len(mods)} int8 convs, {sum(found.values())} ran")
+    return [(*k, n) for k, n in sorted(found.items())], len(mods)
+
+
+def kernel_k5(gen, dev) -> dict:
+    """K5 at every int8 conv shape of ppyolo_2x@608 b8 (stride 1 and 2,
+    the CoordConv C = 2 mod 8 tails), bit-equal to ``quantized_conv2d_plain``
+    with the dynamic scale and with a static one that clips; timed with the
+    static scale (the kernel alone) and the dynamic one (with the amax),
+    beside the plain version, cuDNN's bf16 ``F.conv2d`` of the same shape
+    (``library_ms``) and, on the 1x1 stride-1 convs with C % 8 == 0,
+    ``torch._int_mm`` on the quantized activation.  Per batch: each shape's
+    time times the convs of that shape (65 launches)."""
+    import torch
+    import torch.nn.functional as F
+    from configs import PPYOLO_2x_Config
+    from ppyolo_tpu_torch.ops.conv_int8 import (dynamic_act_scale, pack_int8_weight,
+                                                quantize_act, quantized_conv2d,
+                                                quantized_conv2d_plain)
+
+    shapes, n_convs = int8_conv_shapes(PPYOLO_2x_Config())
+    classes = {(k, c, co) for c, _, _, co, k, _, _ in shapes}
+    if n_convs != INT8_CONVS or len(classes) != INT8_CLASSES:
+        raise AssertionError(f"{n_convs} int8 convs in {len(classes)} (k, Cin, Cout) classes: "
+                             f"want {INT8_CONVS} in {INT8_CLASSES}")
+    rows = []
+    k5 = {"ms": 0.0, "ms_dynamic": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+          "max_abs_err": 0.0, "int_mm_ms": 0.0, "int_mm_k5_ms": 0.0, "int_mm_convs": 0}
+    t_ops = t_bytes = ops_batch = 0.0
+    for c, h, w, co, k, stride, count in shapes:
+        x = (torch.randn(BATCH, c, h, w, generator=gen) * 1.5).to(dev, torch.bfloat16)
+        x = x.contiguous(memory_format=torch.channels_last)
+        wq = torch.randint(-127, 128, (co, c, k, k), generator=gen, dtype=torch.int8).to(dev)
+        ws = (torch.rand(co, generator=gen) * 1e-3 + 1e-4).to(dev)
+        packed = pack_int8_weight(wq)   # once, outside every timed window
+        pad = (k - 1) // 2
+        static = dynamic_act_scale(x) * 0.6   # clips the largest activations
+        kw = dict(stride=stride, padding=pad)
+        with torch.no_grad():
+            for act in (None, static):
+                got = quantized_conv2d(x, wq, ws, act_scale=act, packed=packed, **kw)
+                want = quantized_conv2d_plain(x, wq, ws, act_scale=act, **kw)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"K5 {(c, h, w, co, k, stride)} act_scale {act is not None}: not "
+                        f"bit-equal, max abs {float((got.float() - want.float()).abs().max())}")
+            wb = (wq.float() * ws.view(-1, 1, 1, 1)).to(torch.bfloat16)
+            ms = cuda_ms(lambda: quantized_conv2d(x, wq, ws, act_scale=static, packed=packed,
+                                                  **kw), 20)
+            msd = cuda_ms(lambda: quantized_conv2d(x, wq, ws, packed=packed, **kw), 20)
+            pms = cuda_ms(lambda: quantized_conv2d_plain(x, wq, ws, act_scale=static, **kw), 3)
+            lms = cuda_ms(lambda: F.conv2d(x, wb, **kw), 20)
+            imm = None
+            if k == 1 and stride == 1 and c % 8 == 0 and co % 8 == 0:
+                a = quantize_act(x, static).permute(0, 2, 3, 1).reshape(-1, c)
+                b = wq.view(co, c).t()
+                imm = cuda_ms(lambda: torch._int_mm(a, b), 20)
+                k5["int_mm_ms"] += count * imm
+                k5["int_mm_k5_ms"] += count * ms
+                k5["int_mm_convs"] += count
+        oh, ow = (h - 1) // stride + 1, (w - 1) // stride + 1
+        ops = 2.0 * BATCH * oh * ow * co * k * k * c
+        nbytes = x.numel() * 2 + wq.numel() + co * 4 + BATCH * oh * ow * co * 2
+        b, by = bound_ms(ops, nbytes, PEAK_INT8_OPS)
+        t_ops += count * ops / PEAK_INT8_OPS * 1e3
+        t_bytes += count * nbytes / PEAK_BYTES * 1e3
+        ops_batch += count * ops
+        rows.append({"x": [BATCH, h, w, c], "co": co, "k": k, "stride": stride, "convs": count,
+                     "ms": ms, "ms_dynamic": msd, "plain_ms": pms, "library_ms": lms,
+                     "int_mm_ms": imm, "bound_ms": b, "bound_by": by, "gop": ops / 1e9,
+                     "mbytes": nbytes / 1e6, "tops": ops / ms / 1e9, "x_bound": ms / b,
+                     "x_library": ms / lms, "max_abs_err": 0.0})
+        emit({"phase": "kernel_check", "kernel": "conv_int8", **rows[-1]})
+        for key, v in (("ms", ms), ("ms_dynamic", msd), ("plain_ms", pms),
+                       ("library_ms", lms), ("bound_ms", b)):
+            k5[key] += count * v
+    return dict(
+        name="conv_int8", route="cuda", source="ppyolo_tpu_torch/csrc/conv_int8.cu",
+        replaces="ppyolo_tpu/ops/conv.py:88",
+        note="no Pallas kernel: the JAX package computes quantized_conv2d's conv in XLA",
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        per=f"batch of 8 ({INT8_CONVS} launches over {len(shapes)} shapes in {INT8_CLASSES} "
+            f"(k, Cin, Cout) classes; static scale; library: cuDNN bf16 F.conv2d)",
+        tops=ops_batch / k5["ms"] / 1e9, x_bound=k5["ms"] / k5["bound_ms"],
+        x_library=k5["ms"] / k5["library_ms"], occupancy=occupancy("conv_int8"),
+        shapes=rows, **k5)
+
+
+def nms_inputs(gen, b, k, dev):
+    """K6's inputs as ``multiclass_nms`` builds them: valid [b, k] and the
+    [b, k, k] suppress matrix of k candidates in score order, boxes in
+    clusters (so suppressions chain), 80 classes, IoU > 0.45, earlier
+    suppresses later."""
+    import torch
+    from ppyolo_tpu_torch.ops.iou import pairwise_iou
+
+    centres = torch.rand(b, 24, 2, generator=gen) * SIZE
+    pick = torch.randint(0, 24, (b, k), generator=gen)
+    xy = torch.gather(centres, 1, pick[..., None].expand(-1, -1, 2))
+    xy = xy + torch.randn(b, k, 2, generator=gen) * 6
+    wh = 20 + torch.rand(b, k, 2, generator=gen) * 60
+    boxes = torch.cat([xy - wh / 2, xy + wh / 2], -1)
+    labels = torch.randint(0, 80, (b, k), generator=gen) % 4
+    valid = torch.rand(b, k, generator=gen) < 0.9
+    earlier = torch.triu(torch.ones(k, k, dtype=torch.bool), 1)
+    sup = ((pairwise_iou(boxes, boxes, eps=1e-9) > 0.45)
+           & (labels[:, :, None] == labels[:, None, :]) & earlier)
+    return valid.to(dev), sup.to(dev)
+
+
+def kernel_k6(gen, dev) -> dict:
+    """K6 at the multiclass path's b8, k = 500, bit-equal to the plain
+    fixpoint iteration; timed beside it."""
+    import torch
+    from ppyolo_tpu_torch.ops.matrix_nms import nms_keep, nms_keep_plain
+
+    valid, sup = nms_inputs(gen, NMS_B, NMS_K, dev)
+    got, want = nms_keep(valid, sup), nms_keep_plain(valid, sup)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"K6: {int((got != want).sum())} keep flags differ")
+    ms, pms = cuda_ms(lambda: nms_keep(valid, sup), 20), cuda_ms(lambda: nms_keep_plain(valid, sup), 3)
+    nbytes = sup.numel() + 2 * valid.numel()
+    b, by = bound_ms(0.0, nbytes)
+    out = {"b": NMS_B, "k": NMS_K, "ms": ms, "plain_ms": pms, "bound_ms": b, "bound_by": by,
+           "suppress_density": float(sup.float().mean()), "kept": int(got.sum()),
+           "x_bound": ms / b, "max_abs_err": 0.0}
+    emit({"phase": "kernel_check", "kernel": "nms_keep", **out})
+    return dict(name="nms_keep", route="cuda", source="ppyolo_tpu_torch/csrc/nms_keep.cu",
+                replaces="ppyolo_tpu/ops/matrix_nms.py:146",
+                note="no Pallas kernel: the JAX package runs the fixpoint as an XLA while_loop",
+                library_ms=None, per="batch of 8, k = 500 (one launch)", **out)
 
 
 def phase_probe() -> tuple:
@@ -734,7 +938,8 @@ def kernel_launches(prof, units: int) -> dict:
     """Launches of each port kernel per unit, counted from the profiler's
     kernel names (inside CUDA graph replays too)."""
     names = {"dcn_fwd": ("dcn_fwd_kernel",), "dcn_bwd": ("dcn_bwd_kernel",),
-             "fused_stem": ("fused_stem_kernel",), "conv_s2": ("conv_s2_",)}
+             "fused_stem": ("fused_stem_kernel",), "conv_s2": ("conv_s2_",),
+             "conv_int8": ("conv_int8_kernel",), "nms_keep": ("nms_keep_kernel",)}
     ev = [e for e in prof.key_averages() if e.self_device_time_total > 0]
     return {k: sum(e.count for e in ev if any(n in e.key for n in keys)) / units
             for k, keys in names.items()}
@@ -759,7 +964,7 @@ def phase_profile(det, images, sizes, batch_ms):
     check_counts_in_trace(prof, "graphed serving")
     total, top, by_class = device_time(prof, 3)
     per_batch = kernel_launches(prof, 3)
-    if per_batch != {"dcn_fwd": 3, "dcn_bwd": 0, "fused_stem": 1, "conv_s2": 0}:
+    if per_batch != expect({"dcn_fwd": 3, "fused_stem": 1}, 1):
         raise AssertionError(f"graphed serving: launches per batch {per_batch} in the trace")
 
     # host side of one batch: upload + normalize, enqueue of the forward
@@ -910,8 +1115,7 @@ def phase_graphs_serving(det, sd, smi: str) -> dict:
         raise AssertionError("predict_pipelined differs from predict_batch")
     modes = serving_modes(det, batches, sizes)
     for mode, r in modes.items():
-        if r["launches_per_batch"] != {"dcn_fwd": 3, "dcn_bwd": 0, "fused_stem": 1,
-                                       "conv_s2": 0}:
+        if r["launches_per_batch"] != expect({"dcn_fwd": 3, "fused_stem": 1}, 1):
             raise AssertionError(f"{mode}: launches per batch {r['launches_per_batch']}")
     out = {"phase": "graphs_serving", "model": "ppyolo_2x", "size": SIZE, "batch": BATCH,
            "precision": "bf16", "group": GROUP, "bitwise_graphed_vs_eager": True,
@@ -924,9 +1128,256 @@ def phase_graphs_serving(det, sd, smi: str) -> dict:
     return out
 
 
+def serve_window(det, images, sizes, batches: int) -> dict:
+    """img/s and per-batch host ms of ``batches`` graphed predicts."""
+    import numpy as np
+
+    lat = []
+    t0 = time.perf_counter()
+    for i in range(batches):
+        t = time.perf_counter()
+        out = det.predict_batch(images[i % len(images)], sizes)
+        lat.append(time.perf_counter() - t)
+        if out.shape != (BATCH, 100, 6) or not np.isfinite(out).all():
+            raise AssertionError(f"batch {i}: bad output {out.shape}")
+    wall = time.perf_counter() - t0
+    return {"batches": batches, "img_per_s": BATCH * batches / wall,
+            "batch_ms_median": 1e3 * float(np.median(lat)), "out": out}
+
+
+def profiled_batches(det, images, sizes, per_batch: dict, where: str) -> dict:
+    """Device ms per batch and by class over 3 graphed batches, each port
+    kernel's launches per batch from the trace held to ``per_batch``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    det.predict_batch(images[0], sizes)
+    torch.cuda.synchronize()
+    zero_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(3):
+            det.predict_batch(images[i % len(images)], sizes)
+        torch.cuda.synchronize()
+    check_counts_in_trace(prof, where)
+    total, top, by_class = device_time(prof, 3, 12)
+    launches = kernel_launches(prof, 3)
+    if launches != expect(per_batch, 1):
+        raise AssertionError(f"{where}: launches per batch {launches} in the trace")
+    return {"device_ms_per_batch": total, "by_class": by_class, "top": top,
+            "launches_per_batch": launches}
+
+
+def graphed_equals_eager(det, images, sizes, where: str):
+    import numpy as np
+
+    got = det.predict_batch(images, sizes)
+    want = eager_predict(det, images, sizes)[0].cpu().numpy()
+    if not np.array_equal(got, want):
+        raise AssertionError(f"{where}: graphed vs eager detections differ, max abs "
+                             f"{float(np.abs(got - want).max())}")
+    return got
+
+
+def phase_int8_serving(smi: str):
+    """int8 serving of ppyolo_2x@608 b8 (BN calibrated as the serving phase
+    does it) through ``Detector(precision="int8")``: every batch one graph
+    replay with K1 3, K2 1 and K5 65 launches (counted and in the trace);
+    img/s of int8 and bf16 windows in turn (int8, bf16, bf16, int8), device
+    ms and idle share of each; graphed bit-equal to eager; ``calibrate`` on
+    one batch pins 65 fp32 act scales and sets the graph aside, the next
+    batch captures anew, graphed bit-equal to eager again, the static
+    serving timed; and the card's int8 head maps against its bf16 maps
+    (identity BN, 2 x 160 px) within INT8_GAP_FACTOR x INT8_BF16_GAP."""
+    import numpy as np
+    import torch
+    from configs import PPYOLO_2x_Config
+    from ppyolo_tpu_torch.eval.detector import Detector
+    from ppyolo_tpu_torch.models import PPYOLO
+    from ppyolo_tpu_torch.ops.conv import ConvNormAct
+
+    cfg = PPYOLO_2x_Config()
+    t0 = time.time()
+    model = build_model(cfg, "cuda", SIZE)
+    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    det8 = Detector(model, sd, cfg, precision="int8", device="cuda")
+    det16 = Detector(PPYOLO.from_config(cfg), sd, cfg, precision="bf16", device="cuda")
+    setup_s = time.time() - t0
+    int8_mods = [m for m in det8.model.modules() if isinstance(m, ConvNormAct) and m.conv.is_int8]
+    if len(int8_mods) != INT8_CONVS:
+        raise AssertionError(f"{len(int8_mods)} int8 convs, want {INT8_CONVS}")
+    rng = np.random.RandomState(21)
+    images = [rng.randint(0, 256, (BATCH, SIZE, SIZE, 3), dtype=np.uint8) for _ in range(2)]
+    sizes = np.tile(np.array([[480, 640], [608, 608]], np.float32), (BATCH // 2, 1))
+    per_batch = {"dcn_fwd": 3, "fused_stem": 1, "conv_int8": INT8_CONVS}
+
+    zero_counts()
+    torch.cuda.synchronize()
+    serve_window(det8, images, sizes, WARMUP_BATCHES)
+    windows = {"int8": [serve_window(det8, images, sizes, INT8_WINDOW_BATCHES)]}
+    n_batches = WARMUP_BATCHES + INT8_WINDOW_BATCHES
+    launches, captured = read_counts(), read_captured()
+    if (launches != expect(per_batch, n_batches + warmup_iters())
+            or captured != expect(per_batch, 1)):
+        raise AssertionError(f"int8 serving: launch counts {launches}, captured {captured}: "
+                             f"want {per_batch} per batch and one captured graph")
+    serve_window(det16, images, sizes, WARMUP_BATCHES)
+    windows["bf16"] = [serve_window(det16, images, sizes, INT8_WINDOW_BATCHES) for _ in range(2)]
+    windows["int8"].append(serve_window(det8, images, sizes, INT8_WINDOW_BATCHES))
+    kept = int((windows["int8"][-1]["out"][..., 0] >= 0).sum())
+    prof = {"int8": profiled_batches(det8, images, sizes, per_batch, "int8 serving"),
+            "bf16": profiled_batches(det16, images, sizes, {"dcn_fwd": 3, "fused_stem": 1},
+                                     "bf16 serving")}
+    graphed_equals_eager(det8, images[0], sizes, "int8, dynamic scales")
+
+    n = det8.calibrate(images[1])
+    if n != INT8_CONVS or det8._graphs or len(det8._retired) != 1:
+        raise AssertionError(f"calibrate pinned {n} scales; graphs {list(det8._graphs)}, "
+                             f"set aside {len(det8._retired)}")
+    scales = [m.conv.act_scale for m in int8_mods]
+    if any(t.dtype != torch.float32 or t.dim() != 0 for t in scales):
+        raise AssertionError("act scales must be 0-d fp32")
+    static = serve_window(det8, images, sizes, INT8_WINDOW_BATCHES)
+    if list(det8._graphs) != [1]:
+        raise AssertionError("no graph was captured after calibrate")
+    graphed_equals_eager(det8, images[0], sizes, "int8, static scales")
+    prof["int8_static"] = profiled_batches(det8, images, sizes, per_batch, "int8 static")
+
+    # the card's int8 maps against its bf16 maps, identity BN
+    x = np.ascontiguousarray(images[0][:2, 200:360, 200:360])
+    m0 = build_model(cfg, "cuda")
+    sd0 = {k: v.detach().cpu() for k, v in m0.state_dict().items()}
+    maps = {}
+    for prec, m in (("int8", m0), ("bf16", PPYOLO.from_config(cfg))):
+        d = Detector(m, sd0, cfg, precision=prec, device="cuda")
+        with torch.no_grad():
+            maps[prec] = [o.float() for o in d.model.outputs(d.normalize(
+                torch.from_numpy(x).cuda()))]
+    rel = [float((a - b).norm() / b.norm()) for a, b in zip(maps["int8"], maps["bf16"])]
+    bound = INT8_GAP_FACTOR * INT8_BF16_GAP
+    if not all(r <= bound for r in rel):
+        raise AssertionError(f"int8 vs bf16 head maps, relative L2 {rel} > {bound}")
+
+    def summary(ws):
+        return {"img_per_s": [w["img_per_s"] for w in ws],
+                "batch_ms_median": [w["batch_ms_median"] for w in ws]}
+
+    out = {"phase": "int8_serving", "model": "ppyolo_2x", "size": SIZE, "batch": BATCH,
+           "int8_convs": INT8_CONVS, "setup_s": setup_s, "launches": launches,
+           "captured": captured, "int8": summary(windows["int8"]),
+           "bf16": summary(windows["bf16"]), "int8_static": summary([static]),
+           "kept_detections_last_batch": kept, "bitwise_graphed_vs_eager": True,
+           "bitwise_after_calibrate": True, "calibrated_convs": n,
+           "int8_vs_bf16_rel_l2": rel, "int8_vs_bf16_bound": bound, "nvidia_smi": smi,
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
+    for k, p in prof.items():
+        ms = float(np.median(out[k]["batch_ms_median"]))
+        out[k].update(p, device_idle_share=max(0.0, 1.0 - p["device_ms_per_batch"] / ms))
+    emit(out)
+    return sd, (launches, captured)
+
+
+def phase_multiclass(sd, smi: str):
+    """The int8 serving model with ``nms_type='multiclass_nms'``: K6 once a
+    batch beside K1 3, K2 1 and K5 65 (counted over a warm-up and
+    MC_BATCHES replays, and in a trace), graphed bit-equal to eager, img/s
+    and device ms."""
+    import numpy as np
+    import torch
+    from configs import PPYOLO_2x_Config
+    from ppyolo_tpu_torch.eval.detector import Detector
+    from ppyolo_tpu_torch.models import PPYOLO
+
+    cfg = PPYOLO_2x_Config()
+    cfg.nms_cfg = dict(cfg.nms_cfg, nms_type="multiclass_nms", nms_threshold=0.45)
+    det = Detector(PPYOLO.from_config(cfg), sd, cfg, precision="int8", device="cuda")
+    rng = np.random.RandomState(31)
+    images = [rng.randint(0, 256, (BATCH, SIZE, SIZE, 3), dtype=np.uint8) for _ in range(2)]
+    sizes = np.tile(np.array([[480, 640], [608, 608]], np.float32), (BATCH // 2, 1))
+    per_batch = {"dcn_fwd": 3, "fused_stem": 1, "conv_int8": INT8_CONVS, "nms_keep": 1}
+    zero_counts()
+    torch.cuda.synchronize()
+    serve_window(det, images, sizes, 1)
+    win = serve_window(det, images, sizes, MC_BATCHES)
+    launches, captured = read_counts(), read_captured()
+    if (launches != expect(per_batch, 1 + MC_BATCHES + warmup_iters())
+            or captured != expect(per_batch, 1)):
+        raise AssertionError(f"multiclass serving: launch counts {launches}, captured "
+                             f"{captured}: want {per_batch} per batch")
+    got = graphed_equals_eager(det, images[0], sizes, "multiclass NMS")
+    prof = profiled_batches(det, images, sizes, per_batch, "multiclass serving")
+    out = {"phase": "multiclass", "model": "ppyolo_2x", "precision": "int8", "size": SIZE,
+           "batch": BATCH, "nms_cfg": cfg.nms_cfg, "launches": launches, "captured": captured,
+           "img_per_s": win["img_per_s"], "batch_ms_median": win["batch_ms_median"],
+           "kept_detections": int((got[..., 0] >= 0).sum()), "bitwise_graphed_vs_eager": True,
+           "device_idle_share": max(0.0, 1.0 - prof["device_ms_per_batch"]
+                                    / win["batch_ms_median"]), **prof, "nvidia_smi": smi}
+    emit(out)
+    return launches, captured
+
+
+def phase_serving_entries(smi: str):
+    """``entry.demo`` at int8 on DEMO_IMAGES synthetic jpgs (drawn images
+    written, fps and device ms returned) and ``entry.test_dev`` at int8 on
+    the same images as a test-dev json (the submission json written and
+    parsed), each through its ``main`` with ``--config 0`` pointed at
+    ppyolo_2x on the synthetic set; K1, K2 and K5 launched in the ratio of
+    a forward (3 : 1 : 65)."""
+    import json
+    import os
+    import shutil
+
+    import numpy as np
+    import configs
+    from configs import PPYOLO_2x_Config
+    from ppyolo_tpu_torch.data.synthetic import make_synthetic_coco
+    from ppyolo_tpu_torch.entry import demo, test_dev
+
+    root = REPO / "build" / "chip_smoke_serving"
+    shutil.rmtree(root, ignore_errors=True)
+    anno, img_dir = make_synthetic_coco(
+        str(root / "coco"), DEMO_IMAGES, 80, np.random.RandomState(2),
+        image_sizes=((480, 640), (640, 480), (427, 640)), max_objects=6, box_range=(32, 224))
+    cfg = PPYOLO_2x_Config()
+    cfg.test_path, cfg.test_pre_path = anno, img_dir
+    cfg.test_cfg = dict(cfg.test_cfg, model_path=str(root / "missing.npz"), draw_image=True)
+    cfg.eval_cfg = dict(cfg.eval_cfg, model_path=str(root / "missing.npz"))
+    real = configs.get_config
+    configs.get_config = lambda index: cfg
+    zero_counts()
+    try:
+        t0 = time.time()
+        got = demo.main(["--config", "0", "--precision", "int8", "--image_dir", img_dir,
+                         "--out_dir", str(root / "res")])
+        demo_s = time.time() - t0
+        t0 = time.time()
+        test_dev.main(["--config", "0", "--precision", "int8",
+                       "--result_dir", str(root / "eval_results")])
+        test_dev_s = time.time() - t0
+    finally:
+        configs.get_config = real
+    launches, captured = read_counts(), read_captured()
+    drawn = sorted(os.listdir(root / "res"))
+    rows = json.load(open(root / "eval_results" / "bbox_detections.json"))
+    ids = {im["id"] for im in json.load(open(anno))["images"]}
+    if got["images"] != DEMO_IMAGES or len(drawn) != DEMO_IMAGES or got["fps"] <= 0:
+        raise AssertionError(f"demo: {got}, {len(drawn)} drawn")
+    if not rows or any(set(r) != {"image_id", "category_id", "bbox", "score"}
+                       or r["image_id"] not in ids or len(r["bbox"]) != 4 for r in rows):
+        raise AssertionError(f"test_dev json: {len(rows)} rows, first {rows[:1]}")
+    k2 = launches["fused_stem"]
+    if not k2 or launches["dcn_fwd"] != 3 * k2 or launches["conv_int8"] != INT8_CONVS * k2:
+        raise AssertionError(f"entries: launches {launches}")
+    shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "serving_entries", "precision": "int8", "images": DEMO_IMAGES,
+          "demo": {k: v for k, v in got.items()}, "demo_s": demo_s, "test_dev_s": test_dev_s,
+          "test_dev_rows": len(rows), "drawn": len(drawn), "launches": launches,
+          "captured": captured, "nvidia_smi": smi})
+    return launches, captured
+
+
 KERNEL_CLASSES = (   # (class, substrings of the kernel name), first match wins
     ("port_kernels", ("dcn_fwd_kernel", "dcn_bwd_kernel", "dcn_bwd_gather",
-                      "fused_stem_kernel", "conv_s2_")),
+                      "fused_stem_kernel", "conv_s2_", "conv_int8_kernel", "nms_keep_kernel")),
     ("conv_gemm", ("xmma", "nvjet", "cutlass", "gemm", "cudnn", "dgrad", "wgrad")),
     ("copy_memset", ("Memcpy", "Memset", "copy_kernel", "CatArray")),
     ("elementwise_reduce", ("at::native",)),
@@ -1070,7 +1521,7 @@ def phase_train_profile(state, cfg, host, step_ms: float):
     check_counts_in_trace(prof, "graphed fine-tuning")
     total, top, by_class = device_time(prof, 3, 30)
     per_step = kernel_launches(prof, 3)
-    if per_step != {"dcn_fwd": 3, "dcn_bwd": 3, "fused_stem": 0, "conv_s2": 0}:
+    if per_step != expect({"dcn_fwd": 3, "dcn_bwd": 3}, 1):
         raise AssertionError(f"graphed fine-tuning: launches per step {per_step} in the trace")
     ours = {k: sum(e.self_device_time_total for e in prof.key_averages() if k in e.key) / 3e3
             for k in ("dcn_fwd_kernel", "dcn_bwd_kernel", "dcn_bwd_gather")}
@@ -1205,8 +1656,7 @@ def phase_graphs_training(smi: str) -> dict:
                            "device_ms_per_step": device_ms,
                            "device_idle_share": max(0.0, 1.0 - device_ms / ms),
                            "launches_per_step": kernel_launches(prof, GRAPH_STEPS)}
-            if speed[name]["launches_per_step"] != {"dcn_fwd": 3, "dcn_bwd": 3, "fused_stem": 0,
-                                                    "conv_s2": 0}:
+            if speed[name]["launches_per_step"] != expect({"dcn_fwd": 3, "dcn_bwd": 3}, 1):
                 raise AssertionError(f"{name}: launches per step "
                                      f"{speed[name]['launches_per_step']}")
     finally:
@@ -1635,7 +2085,7 @@ def entry_steady(state, cfg, records) -> dict:
     check_counts_in_trace(prof, "steady steps")
     total, top, by_class = device_time(prof, n_host, 12)
     per_step = kernel_launches(prof, n_host)
-    if per_step != {"dcn_fwd": 3, "dcn_bwd": 0, "fused_stem": 0, "conv_s2": 0}:
+    if per_step != expect({"dcn_fwd": 3}, 1):
         raise AssertionError(f"steady steps: launches per step {per_step} in the trace")
     unit = {k: torch.from_numpy(np.stack([b[k] for b in host[:ENTRY_SCAN]])).to(dev)
             for k in ("image", "gt_bbox", "gt_class", "gt_score")}
@@ -1892,8 +2342,7 @@ def dist_nccl(root: Path, data: dict):
                    nccl_kernel_names=sorted({e.key[:60] for e in nccl}),
                    device_ms_per_step=device_time(prof, 1)[0],
                    launches_per_step=kernel_launches(prof, 1))
-        if out["launches_per_step"] != {"dcn_fwd": 3, "dcn_bwd": 3, "fused_stem": 0,
-                                        "conv_s2": 0}:
+        if out["launches_per_step"] != expect({"dcn_fwd": 3, "dcn_bwd": 3}, 1):
             raise AssertionError(f"replay under the group: launches {out['launches_per_step']}")
 
         # remat against the plain step (the first of ``want``)
@@ -2227,8 +2676,7 @@ def phase_cards(smi: str) -> dict:
     bad = [r["rank"] for r in ranks
            if not (all(r["lockstep"]) and len(r["lockstep"]) == CARDS_STEPS
                    and r["nccl_kernels_per_step"] > 0
-                   and r["launches_per_step"] == {"dcn_fwd": 3, "dcn_bwd": 3, "fused_stem": 0,
-                                                  "conv_s2": 0}
+                   and r["launches_per_step"] == expect({"dcn_fwd": 3, "dcn_bwd": 3}, 1)
                    and r["entry_step"] == DIST_ENTRY_STEPS and r["entry_replicas_equal"]
                    and r["entry_dcp_steps"] == [half, DIST_ENTRY_STEPS])]
     need = {f"step{half:08d}.npz", f"step{DIST_ENTRY_STEPS:08d}.npz", "last_state.npz",
@@ -2364,6 +2812,11 @@ def main() -> int:
         phase_profile(det, images, sizes, batch_ms)
         phase_graphs_serving(det, sd, smi)
         del det
+        torch.cuda.empty_cache()
+        sd8, counts["int8_serving"] = phase_int8_serving(smi)
+        counts["multiclass"] = phase_multiclass(sd8, smi)
+        del sd8
+        counts["serving_entries"] = phase_serving_entries(smi)
         torch.cuda.empty_cache()
         state, cfg, host, step_ms, counts["training"] = phase_training(smi)
         phase_train_profile(state, cfg, host, step_ms)

@@ -7,6 +7,11 @@ function itself: ``conv.weight``, ``conv.conv_offset.weight`` and
 ``conv.dcn_weight``.  Every other leaf is copied as it is.  The JAX side
 is flat, ``{dotted_path: np.ndarray}`` (``flatten_tree`` of the JAX tree),
 which is also the on-disk npz layout of both packages.
+
+An int8 serving tree (``optimize_for_inference(precision="int8")`` of
+either package) crosses too: int8 conv weights stay int8 (HWIO <-> OIHW),
+``weight_scale`` and the 0-d ``act_scale`` stay fp32, and the bf16 leaves
+travel as fp32 (exact; numpy has no bf16), so every value crosses bitwise.
 """
 from __future__ import annotations
 
@@ -14,6 +19,8 @@ from typing import Dict, Mapping
 
 import numpy as np
 import torch
+
+from ..ops.conv import match_int8_form
 
 CONV_KERNEL_SUFFIXES = (".conv.weight", ".conv.conv_offset.weight", ".conv.dcn_weight")
 
@@ -37,16 +44,22 @@ def jax_leaf_to_torch(key: str, value) -> torch.Tensor:
 
 
 def torch_leaf_to_jax(key: str, t: torch.Tensor) -> np.ndarray:
-    """One port tensor as the JAX leaf (numpy, on the host)."""
-    a = t.detach().cpu().numpy()
+    """One port tensor as the JAX leaf (numpy, on the host; bf16 as fp32)."""
+    t = t.detach().cpu()
+    a = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
     return oihw_to_hwio(a) if is_conv_kernel(key, a.ndim) else np.array(a)
 
 
 def jax_params_to_state_dict(flat: Mapping[str, np.ndarray],
                              model: torch.nn.Module) -> Dict[str, torch.Tensor]:
     """Convert flat JAX params for ``model``; the result loads with
-    ``model.load_state_dict(..., strict=True)``.  Raises on any key the
-    model lacks or does not get, and on any shape that does not match."""
+    ``model.load_state_dict(..., strict=True)``.  Float leaves become fp32,
+    int8 leaves stay int8 (and ``model`` takes the int8 form of such a
+    tree, ``ops/conv.py::match_int8_form``).  Raises on any key the model
+    lacks or does not get, and on any shape that does not match."""
+    flat = {k: np.asarray(v) for k, v in flat.items()}
+    match_int8_form(model, {k: torch.empty(0, dtype=torch.int8 if v.dtype == np.int8
+                                           else torch.float32) for k, v in flat.items()})
     want = model.state_dict()
     missing = sorted(set(want) - set(flat))
     extra = sorted(set(flat) - set(want))
@@ -55,7 +68,7 @@ def jax_params_to_state_dict(flat: Mapping[str, np.ndarray],
                        f"extra {extra[:8]} ({len(extra)})")
     out = {}
     for k, v in flat.items():
-        t = jax_leaf_to_torch(k, np.asarray(v, np.float32))
+        t = jax_leaf_to_torch(k, v if v.dtype == np.int8 else np.asarray(v, np.float32))
         if tuple(t.shape) != tuple(want[k].shape):
             raise ValueError(f"{k}: shape {tuple(t.shape)} != model's {tuple(want[k].shape)}")
         out[k] = t

@@ -2,11 +2,13 @@
 
     python -m ppyolo_tpu_torch.entry.eval --config 0 --precision bf16
 
-Weights come from ``eval_cfg['model_path']`` (an npz in the JAX package's
-format; random weights from seed 0 when it is missing) or the caller's
-``state_dict``.  ``type_='test_dev'`` writes the submission json of
-``cfg.test_path`` instead.  ``--scan_group N`` runs N batches as one unit
-of work (``Detector.predict_pipelined``).  On N cards, one process each:
+``--precision int8`` serves the int8 form (quantized convs on K5, dynamic
+activation scales; ``eval/optimize.py``).  Weights come from
+``eval_cfg['model_path']`` (an npz in the JAX package's format; random
+weights from seed 0 when it is missing) or the caller's ``state_dict``.
+``type_='test_dev'`` writes the submission json of ``cfg.test_path``
+instead (``entry/test_dev.py``).  ``--scan_group N`` runs N batches as one
+unit of work (``Detector.predict_pipelined``).  On N cards, one process each:
 
     python -m torch.distributed.run --nproc_per_node N -m ppyolo_tpu_torch.entry.eval --config 0
 
@@ -82,7 +84,7 @@ def main(argv: Optional[list] = None, type_: str = "eval"):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--config", type=int, default=0, choices=[0, 1, 2])
     p.add_argument("--use_gpu", type=str2bool, default=True, help="False runs on the host CPU")
-    p.add_argument("--precision", type=str, default="fp32", choices=["fp32", "bf16"])
+    p.add_argument("--precision", type=str, default="fp32", choices=["fp32", "bf16", "int8"])
     p.add_argument("--ndev", type=int, default=None,
                    help="cards, one process each (default: the world size)")
     p.add_argument("--scan_group", type=int, default=1,

@@ -16,6 +16,14 @@ over the ranks (``parallel/dist.py::make_sharded_predict``).  The Detector
 casts, re-lays and BN-folds the model it is given, so it needs a model of
 its own (never the one being trained): ``set_params`` loads new weights
 into it in place.
+
+``precision="int8"`` serves the int8 form (``eval/optimize.py``): the
+quantized convs run K5 on the card with a dynamic activation scale until
+``calibrate`` pins static ones.  A captured graph holds one of the two
+paths, so ``calibrate`` and an int8 ``set_params`` (which re-quantizes and
+drops the static scales, as the JAX package) set the graphs aside and the
+next predict captures anew.  The graphs set aside stay alive with the
+Detector: their outputs may still be read, and they share its pool.
 """
 from __future__ import annotations
 
@@ -24,10 +32,11 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..ops.conv import ConvNormAct, match_int8_form
 from ..ops.module import resolve_device
 from ..parallel import dist
 from ..train.graphs import Graphs
-from .optimize import COMPUTE_DTYPES, optimize_for_inference
+from .optimize import COMPUTE_DTYPES, calibrate_act_scales, optimize_for_inference
 
 
 class Detector:
@@ -40,6 +49,10 @@ class Detector:
         self._precision, self._fold_bn = precision, fold_bn
         self.model = model.to(device=self.device, dtype=self.compute_dtype,
                               memory_format=torch.channels_last).eval()
+        self._graphs = {}   # group -> Graphs, all in one memory pool
+        self._retired = []  # graphs set aside by calibrate / an int8 set_params
+        self._capture = dist.can_capture(self.device)
+        self._pool = torch.cuda.graph_pool_handle() if self._capture else None
         self.set_params(state_dict)
         self.target_size = int(target_size or cfg.test_cfg["target_size"])
         mean = np.array(cfg.normalizeImage["mean"], np.float32)
@@ -52,16 +65,41 @@ class Detector:
             mean, std = mean[::-1].copy(), std[::-1].copy()
         self.mean = torch.from_numpy(mean).to(self.device).view(1, 3, 1, 1)
         self.std = torch.from_numpy(std).to(self.device).view(1, 3, 1, 1)
-        self._graphs = {}   # group -> Graphs, all in one memory pool
-        self._capture = dist.can_capture(self.device)
-        self._pool = torch.cuda.graph_pool_handle() if self._capture else None
 
     def set_params(self, state_dict) -> None:
         """Load new weights (the port's keys, fp32, any device), BN folded
-        and cast as at construction; the model and its caches stay."""
+        and cast (or quantized) as at construction; the model and its
+        caches stay.  int8: re-quantized, dynamic scales until the next
+        ``calibrate``."""
         sd = optimize_for_inference(state_dict, precision=self._precision,
                                     fold_bn=self._fold_bn)
+        if self._precision == "int8":
+            match_int8_form(self.model, sd)
+            self._retire_graphs()
         self.model.load_state_dict(sd)
+
+    def _retire_graphs(self) -> None:
+        self._retired.extend(self._graphs.values())
+        self._graphs = {}
+
+    @torch.no_grad()
+    def calibrate(self, pimages: np.ndarray) -> int:
+        """Pin static int8 activation scales from one forward of the model
+        as it stands over ``pimages`` (preprocessed [N,S,S,3], uint8 or
+        normalized), on every conv whose weight is int8 (``ppyolo_tpu/
+        eval/detector.py::calibrate``).  Returns the number pinned.  Call
+        again after ``set_params``."""
+        if self._precision != "int8":
+            raise ValueError("calibrate() is for the int8 precision")
+        images = torch.from_numpy(np.ascontiguousarray(pimages)).to(self.device)
+        scales = calibrate_act_scales(self.model, None, [images], preprocess=self.normalize)
+        n = 0
+        for name, m in self.model.named_modules():
+            if isinstance(m, ConvNormAct) and m.conv.is_int8 and name in scales:
+                m.conv.set_act_scale(scales[name])
+                n += 1
+        self._retire_graphs()
+        return n
 
     def process_image(self, img_bgr: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         """BGR->RGB + uint8 cv2 resize on the host (reference decode_np.py:125-140)."""

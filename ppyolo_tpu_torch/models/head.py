@@ -3,11 +3,14 @@
 Counterpart of ``ppyolo_tpu/models/head.py`` (``DetectionBlock``,
 ``YOLOv3Head.get_outputs`` / ``get_prediction``): CoordConv, SPP on the
 first block, transition 1x1 + nearest 2x upsample + route concat, the
-IoU-aware decode and batched Matrix-NMS.  The paramless CoordConv / SPP /
-DropBlock slots consume ``layers`` indices, so the keys match the JAX
-param tree (``detection_blocks.0.layers.1.conv.weight``).  Every concat is
+IoU-aware decode and batched Matrix-NMS, or multiclass (hard) NMS when
+``nms_cfg['nms_type']`` is ``'multiclass_nms'`` (``head.py:327-330``).
+The paramless CoordConv / SPP / DropBlock slots consume ``layers``
+indices, so the keys match the JAX param tree
+(``detection_blocks.0.layers.1.conv.weight``).  Every concat is
 materialized with ``torch.cat``; the JAX package's virtual concat
-(``HEAD_DECOMPOSE``) is a TPU layout optimisation not ported yet.
+(``HEAD_DECOMPOSE``) is a TPU layout optimisation not ported yet (in int8
+serving the JAX package materializes them too: ``ops/conv.py:351-354``).
 DropBlock runs in training only (``head.py:143-147``), drawing from the
 generator handed to ``get_outputs``.  The decode's anchors are a
 non-persistent integer buffer (pixel sizes, exact under the serving
@@ -24,7 +27,7 @@ from torch import nn
 
 from ..ops.blocks import coord_conv, drop_block, spp, upsample_nearest_2x
 from ..ops.conv import ConvNormAct, param_policy_tree
-from ..ops.matrix_nms import matrix_nms
+from ..ops.matrix_nms import matrix_nms, multiclass_nms
 from ..ops.yolo_box import yolo_box_serving
 
 
@@ -117,8 +120,6 @@ class YOLOv3Head(nn.Module):
         self.clip_bbox = clip_bbox
         self.downsample = list(downsample)
         self.nms_cfg = dict(nms_cfg or {})
-        if self.nms_cfg.get("nms_type", "matrix_nms") != "matrix_nms":
-            raise NotImplementedError("only matrix_nms is ported")
         self.n_levels = n = len(downsample)
         blocks, outs, trans = [], [], {}
         for i in range(n):
@@ -158,7 +159,8 @@ class YOLOv3Head(nn.Module):
 
     def get_prediction(self, body_feats: List[torch.Tensor],
                        im_size: torch.Tensor) -> torch.Tensor:
-        """Decode + IoU-aware fuse + batched Matrix-NMS -> [B, keep_top_k, 6]."""
+        """Decode + IoU-aware fuse + batched NMS -> [B, keep_top_k, 6]: the
+        ``nms_type`` switch of the reference (head.py:458-468)."""
         boxes, scores = [], []
         for i, out in enumerate(self.get_outputs(body_feats)):
             lo, hi = self._mask_rows[i], self._mask_rows[i + 1]
@@ -169,4 +171,7 @@ class YOLOv3Head(nn.Module):
                 iou_aware_factor=self.iou_aware_factor if self.iou_aware else None)
             boxes.append(b)
             scores.append(s)
+        if self.nms_cfg.get("nms_type", "matrix_nms") == "multiclass_nms":
+            return multiclass_nms(torch.cat(boxes, dim=1), torch.cat(scores, dim=1),
+                                  self.nms_cfg)
         return matrix_nms(boxes, scores, self.nms_cfg)

@@ -6,21 +6,35 @@ param tree's paths:
 ``conv.weight`` / ``conv.bias`` for a dense conv, ``conv.dcn_weight`` and
 ``conv.conv_offset.{weight,bias}`` for DCNv2, ``bn.{weight,bias,
 running_mean,running_var}`` for BN; ``norm="sync_bn"`` averages the batch
-statistics over the ranks of a process group (``ops/module.py::BatchNorm``).  Weights are OIHW; activations NCHW in
-``channels_last`` memory.  Dense convs go to ``F.conv2d`` (cuDNN on the
-card), as the JAX package leaves them to XLA; DCNv2 goes to
-``ops/deform_conv.py::deform_conv2d`` (the Hopper kernels on the card,
-forward and backward).
+statistics over the ranks of a process group (``ops/module.py::BatchNorm``).
+Weights are OIHW; activations NCHW in ``channels_last`` memory.  Dense
+convs go to ``F.conv2d`` (cuDNN on the card), as the JAX package leaves
+them to XLA; DCNv2 goes to ``ops/deform_conv.py::deform_conv2d`` (the
+Hopper kernels on the card, forward and backward).
+
+The int8 serving form (``ppyolo_tpu/ops/conv.py:278-288``): ``conv.weight``
+int8 OIHW, ``conv.weight_scale`` [O] fp32 and, once calibrated,
+``conv.act_scale`` 0-d fp32, all buffers; ``forward`` dispatches on the
+weight's dtype to ``ops/conv_int8.py::quantized_conv2d`` (K5 on the card).
+``match_int8_form`` gives a model the form of a state dict, so that
+``load_state_dict`` takes an int8 tree.  The scales stay fp32 through
+``Module.to(dtype)``, as ``keep_fp32_suffixes`` keeps them in JAX.  Under
+``recording()`` every non-DCN conv puts its input's fp32 abs-max under
+itself (the JAX ``Ctx.record``, ``ops/conv.py:245-247``), for the int8
+calibration.
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Any, Dict, Optional
+import threading
+from typing import Any, Dict, Mapping, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .conv_int8 import pack_int8_weight, quantized_conv2d
 from .deform_conv import deform_conv2d, needs_grad
 from .module import BatchNorm, ParamPolicy, flatten_tree, store_cached, unflatten_tree
 
@@ -35,8 +49,28 @@ def apply_act(x: torch.Tensor, act: Optional[str]) -> torch.Tensor:
     raise NotImplementedError(f"Activation '{act}' is not implemented.")
 
 
+_RECORD = threading.local()
+
+
+@contextlib.contextmanager
+def recording():
+    """Yields a dict that every non-DCN ConvNormAct run inside the block
+    fills with ``{module: amax(|f32(x)|)}`` of its input (a 0-d tensor on
+    the input's device; the last call of a module wins)."""
+    before = getattr(_RECORD, "rec", None)
+    _RECORD.rec = rec = {}
+    try:
+        yield rec
+    finally:
+        _RECORD.rec = before
+
+
+SCALE_NAMES = ("weight_scale", "act_scale")   # int8 form leaves kept fp32
+
+
 class _ConvParams(nn.Module):
-    """The ``conv`` node of the param tree (parameters only)."""
+    """The ``conv`` node of the param tree (parameters, and the int8 form's
+    buffers)."""
 
     def __init__(self, cin: int, cout: int, ksize: int, bias: bool, use_dcn: bool):
         super().__init__()
@@ -48,6 +82,55 @@ class _ConvParams(nn.Module):
         else:
             self.weight = nn.Parameter(w)
             self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
+
+    @property
+    def is_int8(self) -> bool:
+        return "weight" in self._buffers
+
+    def to_int8(self, act_scale: bool) -> None:
+        """Take the int8 form (zeros until loaded) on the weight's device:
+        ``weight`` int8, ``weight_scale`` [O] fp32, and ``act_scale`` 0-d
+        fp32 only when ``act_scale``."""
+        w = self.weight
+        if not self.is_int8:
+            del self.weight
+            self.register_buffer("weight", torch.zeros(w.shape, dtype=torch.int8,
+                                                       device=w.device))
+            self.register_buffer("weight_scale", torch.zeros(w.shape[0], dtype=torch.float32,
+                                                             device=w.device))
+        if act_scale and "act_scale" not in self._buffers:
+            self.register_buffer("act_scale", torch.zeros((), dtype=torch.float32,
+                                                          device=w.device))
+        elif not act_scale:
+            self._buffers.pop("act_scale", None)
+
+    def to_float(self, dtype: torch.dtype) -> None:
+        """Take the float form again (a zero ``dtype`` weight until loaded)."""
+        if self.is_int8:
+            w = self._buffers.pop("weight")
+            for name in SCALE_NAMES:
+                self._buffers.pop(name, None)
+            self.weight = nn.Parameter(torch.zeros(w.shape, dtype=dtype, device=w.device))
+
+    def set_act_scale(self, value: float) -> None:
+        """Pin the static activation scale (stored as fp32, JAX's
+        ``np.float32(scale)``)."""
+        t = torch.tensor(value, dtype=torch.float32)
+        if "act_scale" in self._buffers:
+            with torch.no_grad():
+                self.act_scale.copy_(t)
+        else:
+            self.register_buffer("act_scale", t.to(self.weight.device))
+
+    def _apply(self, fn, recurse=True):
+        """``Module.to`` and its kin, with the int8 scales moved to the new
+        device but kept fp32 (``Module.to(dtype)`` casts every floating
+        buffer)."""
+        scales = {n: self._buffers.pop(n) for n in SCALE_NAMES if n in self._buffers}
+        super()._apply(fn, recurse)
+        for n, t in scales.items():
+            self._buffers[n] = t.to(fn(t).device)
+        return self
 
 
 class ConvNormAct(nn.Module):
@@ -128,24 +211,34 @@ class ConvNormAct(nn.Module):
         if self.bn is not None:
             self.bn.reset_parameters()
 
-    def packed_dcn_weight(self) -> torch.Tensor:
-        """``dcn_weight`` packed for the kernel, recomputed only when the
-        weight changes (a new tensor, an in-place write, a dtype move)."""
-        from .deform_conv_cuda import pack_dcn_weight
-
-        w = self.conv.dcn_weight
+    def _cached_pack(self, w: torch.Tensor, pack) -> torch.Tensor:
+        """``pack(w)``, recomputed only when w changes (a new tensor, an
+        in-place write, a dtype move), into the cached tensor."""
         key = (w.data_ptr(), w._version, w.dtype, w.device)
         if key != self._packed_key:
             old = None if self._packed is None else (self._packed,)
-            self._packed = store_cached(old, (pack_dcn_weight(w.detach()),))[0]
+            self._packed = store_cached(old, (pack(w.detach()),))[0]
             self._packed_key = key
         return self._packed
 
+    def packed_dcn_weight(self) -> torch.Tensor:
+        """``dcn_weight`` packed for the DCN kernels."""
+        from .deform_conv_cuda import pack_dcn_weight
+
+        return self._cached_pack(self.conv.dcn_weight, pack_dcn_weight)
+
+    def packed_int8_weight(self) -> torch.Tensor:
+        """The int8 ``weight`` packed for K5."""
+        return self._cached_pack(self.conv.weight, pack_int8_weight)
+
     def refresh_cache(self) -> None:
-        """Re-pack the cached DCN weight, and the folded stem when this is
-        the module that holds it, into their existing tensors."""
+        """Re-pack the cached DCN or int8 weight, and the folded stem when
+        this is the module that holds it, into their existing tensors."""
         if self._packed is not None:
-            self.packed_dcn_weight()
+            if self.use_dcn:
+                self.packed_dcn_weight()
+            elif self.conv.is_int8:
+                self.packed_int8_weight()
         stem = getattr(self, "_stem_cache", None)
         if stem is not None:
             from .stem import stem_params
@@ -154,6 +247,9 @@ class ConvNormAct(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         c = self.conv
+        rec = getattr(_RECORD, "rec", None)
+        if rec is not None and not self.use_dcn:
+            rec[self] = x.float().abs().amax()
         if self.use_dcn:
             om = F.conv2d(x, c.conv_offset.weight, c.conv_offset.bias,
                           self.stride, self.padding)
@@ -162,6 +258,12 @@ class ConvNormAct(nn.Module):
                       if x.is_cuda and not needs_grad(x, c.dcn_weight, om) else None)
             x = deform_conv2d(x, c.dcn_weight, om, stride=self.stride,
                               padding=self.padding, packed_weight=packed)
+        elif c.is_int8:
+            # int8 serving form (eval/optimize.py::quantize_params_int8)
+            x = quantized_conv2d(x, c.weight, c.weight_scale, stride=self.stride,
+                                 padding=self.padding, bias=c.bias,
+                                 act_scale=c._buffers.get("act_scale"),
+                                 packed=self.packed_int8_weight() if x.is_cuda else None)
         else:
             x = F.conv2d(x, c.weight, c.bias, self.stride, self.padding)
         if self.bn is not None:
@@ -178,3 +280,21 @@ def param_policy_tree(module: nn.Module) -> Dict[str, Any]:
             for k, pol in flatten_tree(m.param_policy()).items():
                 flat[f"{name}.{k}" if name else k] = pol
     return unflatten_tree(flat)
+
+
+def match_int8_form(model: nn.Module, sd: Mapping[str, torch.Tensor]) -> None:
+    """Give every dense ConvNormAct of ``model`` the form of ``sd``: int8
+    where ``<path>.conv.weight`` is int8 (with ``act_scale`` where ``sd``
+    has one), float where it is not, so ``model.load_state_dict(sd)``
+    takes the tree.  Modules the state dict does not name are left as
+    they are."""
+    for name, m in model.named_modules():
+        if not isinstance(m, ConvNormAct) or m.use_dcn:
+            continue
+        w = sd.get(f"{name}.conv.weight")
+        if w is None:
+            continue
+        if w.dtype == torch.int8:
+            m.conv.to_int8(act_scale=f"{name}.conv.act_scale" in sd)
+        else:
+            m.conv.to_float(w.dtype)

@@ -1,9 +1,13 @@
-"""Batched, static-shape Matrix-NMS on the device.
+"""Batched, static-shape Matrix-NMS and multiclass (hard) NMS on the device.
 
-Counterpart of ``ppyolo_tpu/ops/matrix_nms.py::matrix_nms``: the two-stage
-exact top-k over a per-level virtual concat of the scores, the decay
-matrix in fp32, and a fixed ``[B, keep_top_k, 6]`` output with -1 rows for
-empty slots.
+Counterpart of ``ppyolo_tpu/ops/matrix_nms.py``.  ``matrix_nms``: the
+two-stage exact top-k over a per-level virtual concat of the scores, the
+decay matrix in fp32, and a fixed ``[B, keep_top_k, 6]`` output with -1
+rows for empty slots.  ``multiclass_nms``: per-class greedy NMS over the
+top ``nms_top_k`` (anchor, class) pairs, the same output.  Its greedy keep
+is ``nms_keep``: the plain version (the JAX package's fixpoint iteration,
+eagerly) for a CPU tensor, the Hopper kernel K6 (``csrc/nms_keep.cu``) for
+a CUDA tensor; ``nms_keep.launches`` counts K6's launches.
 
 ``lax.top_k`` breaks ties by the lowest index; ``torch.topk`` promises no
 order for ties (and bf16 scores tie often).  ``_topk`` therefore selects
@@ -12,10 +16,13 @@ order: value descending, then index ascending.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Any, Dict, Sequence
 
 import torch
 
+from . import _build
 from .iou import pairwise_iou
 
 
@@ -111,4 +118,97 @@ def matrix_nms(boxes, scores, nms_cfg: Dict[str, Any]) -> torch.Tensor:
     out_boxes = torch.where(out_keep[..., None], _take(cand, out_idx), -1.0)
     out_labels = torch.where(out_keep, torch.gather(labels, 1, out_idx).float(), -1.0)
     out_scores = torch.where(out_keep, out_vals, -1.0)
+    return torch.cat([out_labels[..., None], out_scores[..., None], out_boxes], dim=-1)
+
+
+def nms_keep_plain(valid: torch.Tensor, suppress: torch.Tensor) -> torch.Tensor:
+    """The greedy keep as the JAX package computes it: from ``keep =
+    valid``, ``keep = valid & ~any_j(keep[j] & suppress[j, i])`` until it
+    stops changing (or k rounds).  valid [B, k] bool, suppress [B, k, k]
+    bool (``[b, j, i]``: j suppresses i, only for j < i).  The suppression
+    graph is a DAG, so the fixpoint is unique: the sequential greedy walk."""
+    keep = valid
+    for _ in range(valid.shape[1]):
+        new = valid & ~(keep[:, :, None] & suppress).any(dim=1)
+        if torch.equal(new, keep):
+            break
+        keep = new
+    return keep
+
+
+_KEEP_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+
+
+@functools.lru_cache(maxsize=None)
+def _keep_lib():
+    lib = _build.load("nms_keep")
+    lib.nms_keep_launch.argtypes = _KEEP_ARGTYPES
+    lib.nms_keep_launch.restype = ctypes.c_int
+    lib.nms_keep_max_k.restype = ctypes.c_int
+    return lib
+
+
+@_build.counted
+def nms_keep(valid: torch.Tensor, suppress: torch.Tensor) -> torch.Tensor:
+    """The greedy keep on valid's device: ``nms_keep_plain`` for a CPU
+    tensor, K6 for a CUDA tensor (k <= 1024; it raises otherwise)."""
+    bsz, k = valid.shape
+    if valid.dtype != torch.bool or suppress.dtype != torch.bool:
+        raise ValueError(f"nms_keep: valid and suppress must be bool, got {valid.dtype}, "
+                         f"{suppress.dtype}")
+    if tuple(suppress.shape) != (bsz, k, k):
+        raise ValueError(f"nms_keep: suppress {tuple(suppress.shape)} is not ({bsz}, {k}, {k})")
+    if valid.device.type == "cpu":
+        return nms_keep_plain(valid, suppress)
+    if valid.device.type != "cuda" or suppress.device != valid.device:
+        raise ValueError(f"nms_keep: valid on {valid.device}, suppress on {suppress.device}")
+    lib = _keep_lib()
+    if k > lib.nms_keep_max_k():
+        raise ValueError(f"nms_keep kernel takes k <= {lib.nms_keep_max_k()}, got {k}")
+    valid, suppress = valid.contiguous(), suppress.contiguous()
+    keep = torch.empty_like(valid)
+    _build.note_launch(nms_keep)
+    err = lib.nms_keep_launch(valid.data_ptr(), suppress.data_ptr(), keep.data_ptr(), bsz, k,
+                              torch.cuda.current_stream(valid.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"nms_keep kernel launch failed: cudaError {err}")
+    return keep
+
+
+def multiclass_nms(boxes: torch.Tensor, scores: torch.Tensor,
+                   nms_cfg: Dict[str, Any]) -> torch.Tensor:
+    """Batched per-class greedy hard NMS (``matrix_nms.py:146-215``).
+
+    boxes [B, A, 4] xyxy, scores [B, A, C].  The top ``nms_top_k`` (anchor,
+    class) pairs above ``score_threshold`` in score order are the
+    candidates; a candidate is dropped when an earlier kept one of its
+    class overlaps it by IoU > ``nms_threshold``.  Returns [B, keep_top_k,
+    6] rows (label, score, x0, y0, x1, y1), -1 rows for empty slots."""
+    thr = float(nms_cfg.get("score_threshold", 0.01))
+    nms_thr = float(nms_cfg.get("nms_threshold", 0.45))
+    nms_top_k = int(nms_cfg.get("nms_top_k", 500))
+    keep_top_k = int(nms_cfg.get("keep_top_k", 100))
+    bsz, a, c = scores.shape
+    k = min(nms_top_k, a * c)
+    flat = scores.reshape(bsz, a * c)
+    # masked-out sentinel sorts below every surviving score
+    sent = 0.0 if thr >= 0.0 else float("-inf")
+    vals, idx = _topk(torch.where(flat > thr, flat, sent), k)
+    vals = vals.float()
+    valid = vals > thr
+    labels = idx % c
+    cand = _take(boxes, idx // c)                                 # [B, k, 4]
+
+    iou = pairwise_iou(cand, cand, eps=1e-9)
+    same = labels[:, :, None] == labels[:, None, :]
+    earlier = torch.triu(torch.ones((k, k), dtype=torch.bool, device=iou.device), 1)
+    suppress = (iou > nms_thr) & same & earlier                   # [b, j, i]: j before i
+    keep = nms_keep(valid, suppress)
+    # kept rows with non-positive scores (a negative threshold) stay valid
+    final = torch.where(keep, vals, float("-inf"))
+    out_vals, out_idx = _topk(final, min(keep_top_k, k))
+    ok = torch.gather(keep, 1, out_idx)
+    out_boxes = torch.where(ok[..., None], _take(cand, out_idx), -1.0)
+    out_labels = torch.where(ok, torch.gather(labels, 1, out_idx).float(), -1.0)
+    out_scores = torch.where(ok, out_vals, -1.0)
     return torch.cat([out_labels[..., None], out_scores[..., None], out_boxes], dim=-1)

@@ -53,6 +53,7 @@ replay of any graph in the pool; read (or copy) them before that.
 """
 from __future__ import annotations
 
+import gc
 import time
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
@@ -166,9 +167,21 @@ class Graphs:
                 graph.register_generator_state(g)
             before = {fn: fn.captured for fn in _build.COUNTED}
             mode = "thread_local" if dist.active() else "global"
-            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
-                                  capture_error_mode=mode):
-                out = self.fn(static)
+            # A dead reference cycle that holds another CUDA graph (a
+            # Detector's graphs refer back to it) must not be collected
+            # mid-capture: the graph's destructor calls into CUDA on this
+            # thread and invalidates the capture.  Collect it now, and let
+            # no collection run while capturing.
+            gc.collect()
+            gc_on = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
+                                      capture_error_mode=mode):
+                    out = self.fn(static)
+            finally:
+                if gc_on:
+                    gc.enable()
             recorded = {fn: fn.captured - before.get(fn, 0) for fn in _build.COUNTED}
             self.graphs[key] = (graph, static, out, {f: n for f, n in recorded.items() if n})
             torch.cuda.synchronize(self.device)

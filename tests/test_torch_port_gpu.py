@@ -682,3 +682,201 @@ def test_sync_bn_graphed_steps_under_nccl_equal_no_group(tmp_path):
                                rtol=1e-5)
     running = [k for k in one_state if "running_" in k]
     assert running and all(torch.equal(remat_state[k], one_state[k]) for k in running)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", [None, "nccl"])
+def test_capture_survives_a_dead_graph_in_a_reference_cycle(backend, tmp_path):
+    """A captured graph held only by a dead reference cycle (as a dropped
+    Detector holds its graphs) is destroyed by the garbage collector.
+    ``Graphs`` collects before capturing and holds the collector off while
+    it captures, so a collection that lands inside the capture (under a
+    one-rank NCCL group too, ``thread_local`` mode) finds nothing to
+    destroy and the capture holds."""
+    import gc
+
+    import torch.distributed as tdist
+
+    from ppyolo_tpu_torch.train.graphs import Graphs
+
+    _cuda_or_skip()
+    if backend:
+        _group(backend, tmp_path)
+    try:
+        x = torch.zeros(4, device="cuda")
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            x.add_(1)
+        torch.cuda.current_stream().wait_stream(side)
+        gc.disable()   # the cycle stays uncollected until a collection runs
+        try:
+            dead = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(dead):
+                x.add_(1)
+            cycle = {"graph": dead}
+            cycle["self"] = cycle
+            del dead, cycle
+
+            def fn(inp):
+                if torch.cuda.is_current_stream_capturing():
+                    gc.collect()   # a collection that lands inside the capture
+                return {"y": inp["x"] * 2 + 1}
+
+            out = Graphs(fn, "cuda")({"x": torch.ones(4)})
+            torch.cuda.synchronize()
+        finally:
+            gc.enable()
+        assert torch.equal(out["y"].cpu(), torch.full((4,), 3.0))
+    finally:
+        if backend:
+            tdist.destroy_process_group()
+
+
+# ---------------------------------------------------------------- K5, K6: int8 serving
+
+def _int8_conv_inputs(seed, n, h, w, c, co, k, dev):
+    r = np.random.RandomState(seed)
+    x = torch.from_numpy((r.randn(n, h, w, c) * 1.5).astype(np.float32))
+    x = x.to(dev, torch.bfloat16).permute(0, 3, 1, 2)          # channels_last memory
+    wq = torch.from_numpy(r.randint(-127, 128, (co, c, k, k)).astype(np.int8)).to(dev)
+    ws = torch.from_numpy((r.rand(co) * 1e-3 + 1e-4).astype(np.float32)).to(dev)
+    bias = torch.from_numpy((r.randn(co) * 0.1).astype(np.float32)).to(dev, torch.bfloat16)
+    return x, wq, ws, bias
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("static", [False, True])
+@pytest.mark.parametrize("shape", [(2, 9, 10, 32, 24, 1, 1), (2, 9, 10, 32, 24, 1, 2),
+                                   (2, 11, 7, 130, 64, 1, 1), (1, 19, 19, 258, 128, 1, 1),
+                                   (2, 10, 10, 514, 256, 1, 1), (1, 13, 13, 2050, 512, 1, 1),
+                                   (2, 16, 16, 64, 64, 3, 1), (2, 38, 38, 128, 128, 3, 2),
+                                   (1, 19, 19, 136, 200, 3, 1), (1, 7, 9, 45, 18, 3, 2),
+                                   (8, 76, 76, 256, 256, 3, 2)])
+def test_int8_conv_kernel_is_bitwise_plain(shape, static):
+    """K5 bit-equal to ``quantized_conv2d_plain`` (the exact int8 sum, the
+    JAX dequant order) at the edges of its 128 x 128 tile and 64-byte K
+    chunk: C tails 130/258/514/2050 (C = 2 mod 8: 4-byte loads), 45 (odd:
+    2-byte loads), 136 (8 mod 64), ragged pixel and Co tails (Co 18, 200),
+    stride 2 for 1x1 and 3x3, with a bias, dynamic and static scales."""
+    from ppyolo_tpu_torch.ops.conv_int8 import (dynamic_act_scale, quantized_conv2d,
+                                                quantized_conv2d_plain)
+
+    dev = _cuda_or_skip()
+    n, h, w, c, co, k, stride = shape
+    x, wq, ws, bias = _int8_conv_inputs(sum(shape), n, h, w, c, co, k, dev)
+    act = (dynamic_act_scale(x) * 0.6) if static else None     # static: clips the largest
+    kw = dict(stride=stride, padding=(k - 1) // 2, bias=bias, act_scale=act)
+    before = quantized_conv2d.launches
+    with torch.no_grad():
+        got = quantized_conv2d(x, wq, ws, **kw)
+        want = quantized_conv2d_plain(x, wq, ws, **kw)
+    torch.cuda.synchronize()
+    assert quantized_conv2d.launches == before + 1
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, want), float((got.float() - want.float()).abs().max())
+    assert got.abs().max() > 0
+
+
+@pytest.mark.gpu
+def test_int8_conv_kernel_refuses_what_it_does_not_take():
+    from ppyolo_tpu_torch.ops.conv_int8 import pack_int8_weight, quantized_conv2d
+
+    dev = _cuda_or_skip()
+    x, wq, ws, bias = _int8_conv_inputs(0, 1, 8, 8, 32, 24, 3, dev)
+    with pytest.raises(ValueError, match="bf16"):
+        quantized_conv2d(x.float(), wq, ws, stride=1, padding=1)
+    with pytest.raises(ValueError, match="weight_scale"):
+        quantized_conv2d(x, wq, ws.cpu(), stride=1, padding=1)
+    with pytest.raises(ValueError, match="packed"):
+        quantized_conv2d(x, wq, ws, stride=1, padding=1,
+                         packed=pack_int8_weight(wq)[:, :-16].contiguous())
+    with pytest.raises(ValueError, match="even Co"):
+        quantized_conv2d(x, wq[:23], ws[:23], stride=1, padding=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,k", [(8, 500), (3, 97), (2, 1024), (1, 1)])
+def test_nms_keep_kernel_is_bitwise_plain(b, k):
+    """K6 equal to the fixpoint iteration on seeded valid masks and
+    strictly upper-triangular suppress matrices, dense and sparse."""
+    from ppyolo_tpu_torch.ops.matrix_nms import nms_keep, nms_keep_plain
+
+    dev = _cuda_or_skip()
+    g = torch.Generator().manual_seed(b * 1000 + k)
+    valid = torch.rand(b, k, generator=g) < 0.9
+    density = torch.rand(b, 1, 1, generator=g) * 0.05
+    tri = torch.triu(torch.ones(k, k, dtype=torch.bool), 1)
+    sup = (torch.rand(b, k, k, generator=g) < density) & tri
+    before = nms_keep.launches
+    got = nms_keep(valid.to(dev), sup.to(dev))
+    torch.cuda.synchronize()
+    assert nms_keep.launches == before + 1
+    assert torch.equal(got.cpu(), nms_keep_plain(valid, sup))
+    with pytest.raises(ValueError, match="k <="):
+        nms_keep(torch.ones(1, 1025, dtype=torch.bool, device=dev),
+                 torch.zeros(1, 1025, 1025, dtype=torch.bool, device=dev))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nms_type", ["matrix_nms", "multiclass_nms"])
+def test_int8_detector_graphed_is_bitwise_eager(nms_type):
+    """int8 serving of mini-2x at 96 px: the graphed ``predict_batch``
+    equals the eager forward with dynamic scales, after ``calibrate`` (the
+    graph set aside and captured anew, the scales fp32) and after
+    ``set_params`` (dynamic again); every int8 conv runs K5 on the card,
+    never the plain version: K5 launches once per int8 conv per forward, K6
+    once per multiclass forward."""
+    from ppyolo_tpu_torch.eval.detector import Detector
+    from ppyolo_tpu_torch.models import PPYOLO
+    from ppyolo_tpu_torch.ops import conv_int8
+    from ppyolo_tpu_torch.ops.conv import ConvNormAct
+    from ppyolo_tpu_torch.ops.matrix_nms import nms_keep
+
+    _cuda_or_skip()
+    cfg = _mini2x_cfg()
+    cfg.nms_cfg = dict(cfg.nms_cfg, nms_type=nms_type)
+    sds = [PPYOLO.from_config(cfg).init_parameters(torch.Generator().manual_seed(s)).state_dict()
+           for s in (0, 1)]
+    det = Detector(PPYOLO.from_config(cfg), sds[0], cfg, target_size=96, precision="int8")
+    n8 = sum(isinstance(m, ConvNormAct) and m.conv.is_int8 for m in det.model.modules())
+    assert n8 > 30
+    r = np.random.RandomState(4)
+    images = r.randint(0, 256, (2, 96, 96, 3)).astype(np.uint8)
+    sizes = np.array([[480, 640], [96, 96]], np.float32)
+    plain_calls = []
+    real_plain = conv_int8.quantized_conv2d_plain
+    conv_int8.quantized_conv2d_plain = lambda *a, **kw: plain_calls.append(1) or real_plain(*a, **kw)
+
+    def eager():
+        with torch.no_grad():
+            x = det.normalize(torch.from_numpy(images).cuda())
+            return det.model.predict(x, torch.from_numpy(sizes).cuda()).cpu().numpy()
+
+    try:
+        outs = []
+        for step in ("dynamic", "calibrated", "set_params"):
+            if step == "calibrated":
+                assert det.calibrate(images) == n8
+                for m in det.model.modules():
+                    if isinstance(m, ConvNormAct) and m.conv.is_int8:
+                        assert m.conv.act_scale.dtype == torch.float32
+            elif step == "set_params":
+                det.set_params(sds[1])
+                assert not any(k.endswith("act_scale") for k in det.model.state_dict())
+            k5, k6 = conv_int8.quantized_conv2d.launches, nms_keep.launches
+            got = det.predict_batch(images, sizes)
+            want = eager()
+            torch.cuda.synchronize()
+            # the capture's eager warm-up run, the replay and the eager forward
+            assert conv_int8.quantized_conv2d.launches - k5 == 3 * n8
+            assert nms_keep.launches - k6 == (3 if nms_type == "multiclass_nms" else 0)
+            assert (got[..., 0] >= 0).any()
+            np.testing.assert_array_equal(got, want)
+            outs.append(got)
+        assert len(det._retired) == 2 and list(det._graphs) == [1]
+        assert not np.array_equal(outs[0], outs[2])
+        assert plain_calls == []
+    finally:
+        conv_int8.quantized_conv2d_plain = real_plain

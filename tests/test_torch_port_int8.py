@@ -1,0 +1,487 @@
+"""The port's int8 serving mode and multiclass NMS against the JAX package, on the CPU.
+
+Same seeded numpy inputs through both packages:
+
+* ``quantize_params_int8`` after ``fold_bn_params``: the same keys, the int8
+  weights (after HWIO -> OIHW) and ``weight_scale`` bitwise, the coverage
+  rules (stem, ``min_k``, DCN and output convs stay float), on ppyolo_r18vd
+  and the mini-2x configuration;
+* ``quantized_conv2d_plain`` bitwise ``ppyolo_tpu.ops.conv.quantized_conv2d``
+  (the int8 activations and the bf16 output), dynamic and static scales;
+* ``calibrate_act_scales``: the same keys, the scales within 1e-3 relative
+  (fp32 forwards that round in another order);
+* the whole int8 forward of ppyolo_2x: the head maps lie as close to the
+  exact (fp64, unfolded) forward as JAX's int8 maps do, held as
+  ``test_torch_port_model.py::test_bf16_gap_to_jax_is_rounding_order``
+  holds bf16; the port's int8-vs-bf16 gap on these inputs is the bound
+  chip_smoke's ``int8_serving`` phase scales for the card;
+* the JAX int8 tree through the bridge both ways, bitwise;
+* ``Detector(precision="int8")`` with ``calibrate`` and ``set_params``, its
+  scales fp32 through ``Module.to``;
+* ``multiclass_nms`` bitwise JAX's (ties, a negative threshold) and the
+  greedy oracle of ``tests/test_ops.py``.
+"""
+import ctypes
+import re
+from pathlib import Path
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from configs import PPYOLO_2x_Config, PPYOLO_r18vd_Config
+from ppyolo_tpu.eval import optimize as jopt
+from ppyolo_tpu.models import PPYOLO as JaxPPYOLO
+from ppyolo_tpu.ops.conv import quantized_conv2d as jax_quantized_conv2d
+from ppyolo_tpu.ops.matrix_nms import multiclass_nms as jax_multiclass_nms
+from ppyolo_tpu.ops.module import Ctx
+from ppyolo_tpu.ops.module import flatten_tree as jax_flatten
+from ppyolo_tpu.ops.module import unflatten_tree as jax_unflatten
+
+from ppyolo_tpu_torch.checkpoint.bridge import (jax_params_to_state_dict,
+                                                state_dict_to_jax_params)
+from ppyolo_tpu_torch.eval import optimize
+from ppyolo_tpu_torch.models import PPYOLO
+from ppyolo_tpu_torch.ops import conv_int8, matrix_nms
+from ppyolo_tpu_torch.ops.conv import ConvNormAct, match_int8_form
+from ppyolo_tpu_torch.ops.conv_int8 import (dynamic_act_scale, pack_int8_weight,
+                                            quantize_act, quantized_conv2d,
+                                            quantized_conv2d_plain)
+
+from test_torch_port_train import mini2x_cfg
+
+REPO = Path(__file__).resolve().parent.parent
+
+# The port's int8 head maps against its own bf16 maps (ppyolo_2x, 6
+# classes, JAX init from PRNGKey(123), perturbed offsets, 2 x 160 px):
+# relative L2 by level, measured 4.20e-2, 6.31e-2, 7.16e-2 (JAX's own int8
+# maps lie 4.12e-2, 6.34e-2, 7.24e-2 from the exact forward); gated at 0.1.
+# chip_smoke's int8_serving phase holds the card's int8 maps against the
+# card's bf16 maps at twice this bound.
+INT8_BF16_GAP = 0.1
+
+
+def _r18_cfg():
+    cfg = PPYOLO_r18vd_Config()
+    cfg.num_classes = 5
+    cfg.head = dict(cfg.head, num_classes=5)
+    return cfg
+
+
+def _2x_cfg():
+    cfg = PPYOLO_2x_Config()
+    cfg.num_classes = 6
+    cfg.head = dict(cfg.head, num_classes=6)
+    return cfg
+
+
+CONFIGS = {"r18vd": _r18_cfg, "mini2x": mini2x_cfg}
+
+
+def _jax_params(cfg, seed, offsets=True, bn_stats=True):
+    """JAX init with non-trivial BN statistics (so the fold matters) and
+    small random offset convs (so DCN samples off the grid)."""
+    jm = JaxPPYOLO.from_config(cfg)
+    flat = jax_flatten(jm.init(jax.random.PRNGKey(seed)))
+    r = np.random.RandomState(seed)
+    for k in sorted(flat):
+        shape = flat[k].shape
+        if bn_stats and k.endswith("bn.running_mean"):
+            flat[k] = jnp.asarray(r.randn(*shape).astype(np.float32) * 0.1)
+        elif bn_stats and k.endswith("bn.running_var"):
+            flat[k] = jnp.asarray(r.rand(*shape).astype(np.float32) + 0.5)
+        elif offsets and "conv_offset" in k:
+            flat[k] = jnp.asarray(r.randn(*shape).astype(np.float32) * 0.02)
+    return jm, jax_unflatten(flat)
+
+
+def _np(tree):
+    return {k: np.asarray(v) for k, v in jax_flatten(tree).items()}
+
+
+def _port_sd(cfg, params):
+    model = PPYOLO.from_config(cfg)
+    return model, jax_params_to_state_dict(_np(params), model)
+
+
+def _nchw(a, dtype):
+    return torch.from_numpy(np.array(a)).to(dtype).permute(0, 3, 1, 2)
+
+
+def _nhwc(t):
+    return t.float().permute(0, 2, 3, 1).numpy()
+
+
+def _rel(a, b):
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+# ---------------------------------------------------------------- quantize_params_int8
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_quantize_params_int8_matches_jax(name):
+    cfg = CONFIGS[name]()
+    _, params = _jax_params(cfg, 3)
+    want = _np(jopt.quantize_params_int8(jopt.fold_bn_params(params)))
+    _, sd = _port_sd(cfg, params)
+    got = optimize.quantize_params_int8(optimize.fold_bn_params(sd))
+    assert got.keys() == want.keys()
+    got_j = state_dict_to_jax_params(got)
+    for k, v in want.items():   # the folded float leaves too
+        assert got_j[k].dtype == v.dtype, k
+        np.testing.assert_array_equal(got_j[k], v, err_msg=k)
+    n8 = sum(v.dtype == np.int8 for v in want.values())
+    assert n8 == sum(k.endswith(".weight_scale") for k in want) > 10
+    # coverage: the stem, the min_k convs, DCN and the output convs stay float
+    for i in (1, 2, 3):
+        assert got[f"backbone.stage1_conv1_{i}.conv.weight"].dtype == torch.float32
+    assert got["backbone.stage2_0.conv3.conv.weight"].dtype == torch.float32   # 64 < min_k
+    assert got["backbone.stage3_0.conv1.conv.weight"].dtype == torch.int8
+    assert all(got[k].dtype == torch.float32 for k in got
+               if k.endswith(("dcn_weight", "conv_offset.weight")))
+    outs = [k for k in got if k.startswith("head.yolo_output_convs.") and k.endswith("weight")]
+    assert outs and all(got[k].dtype == torch.float32 for k in outs)
+
+
+def test_optimize_for_inference_int8_keeps_the_scales_fp32():
+    cfg = mini2x_cfg()
+    _, params = _jax_params(cfg, 4)
+    want = _np(jopt.optimize_for_inference(params, precision="int8"))
+    _, sd = _port_sd(cfg, params)
+    got = optimize.optimize_for_inference(sd, precision="int8")
+    assert got.keys() == want.keys()
+    for k, v in got.items():
+        j = want[k]
+        want_dt = {np.int8: torch.int8, np.float32: torch.float32}.get(j.dtype.type,
+                                                                       torch.bfloat16)
+        assert v.dtype == want_dt, k
+        np.testing.assert_array_equal(state_dict_to_jax_params({k: v})[k],
+                                      np.asarray(j, np.float32) if v.is_floating_point() else j,
+                                      err_msg=k)
+
+
+# ---------------------------------------------------------------- the int8 conv
+
+def _quantized_weight(r, k, cin, cout):
+    w = (r.randn(k, k, cin, cout) * 0.1).astype(np.float32)        # HWIO
+    s = np.maximum(np.max(np.abs(w), axis=(0, 1, 2)), 1e-12) / 127.0
+    return np.clip(np.round(w / s), -127, 127).astype(np.int8), s.astype(np.float32)
+
+
+@pytest.mark.parametrize("static", [False, True])
+@pytest.mark.parametrize("cin", [32, 130, 258])
+@pytest.mark.parametrize("k,stride", [(1, 1), (1, 2), (3, 1), (3, 2)])
+def test_quantized_conv2d_plain_is_bitwise_jax(k, stride, cin, static):
+    r = np.random.RandomState(cin + 10 * k + stride)
+    x = (r.randn(2, 9, 10, cin) * 1.5).astype(np.float32)
+    x[0, 0, 0, :4] = [0.0, -0.0, 3e-3, -3e-3]
+    xj = jnp.asarray(x, jnp.bfloat16)
+    xt = _nchw(np.asarray(xj.astype(jnp.float32)), torch.bfloat16)
+    wq, s = _quantized_weight(r, k, cin, 24)
+    bias = (r.randn(24) * 0.1).astype(np.float32)
+    act = np.float32(np.abs(x).max() * 0.7 / 127.0) if static else None   # clips some
+    pad = (k - 1) // 2
+    want = jax_quantized_conv2d(xj, jnp.asarray(wq), jnp.asarray(s), stride=stride,
+                                padding=pad, bias=jnp.asarray(bias, jnp.bfloat16),
+                                act_scale=None if act is None else jnp.asarray(act))
+    wt = torch.from_numpy(np.ascontiguousarray(wq.transpose(3, 2, 0, 1)))
+    act_t = None if act is None else torch.tensor(act)
+    got = quantized_conv2d(xt, wt, torch.from_numpy(s), stride=stride, padding=pad,
+                           bias=torch.from_numpy(bias).bfloat16(), act_scale=act_t)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(_nhwc(got), np.asarray(want.astype(jnp.float32)))
+    # the int8 activations and the dynamic scale
+    x32 = xj.astype(jnp.float32)
+    s_x = jnp.maximum(jnp.max(jnp.abs(x32)), 1e-6) / 127.0 if act is None else jnp.asarray(act)
+    s_t = dynamic_act_scale(xt) if act is None else act_t
+    assert s_t.dtype == torch.float32 and float(s_t) == float(s_x)
+    xq_j = jnp.clip(jnp.round(x32 / s_x), -127, 127).astype(jnp.int8)
+    np.testing.assert_array_equal(quantize_act(xt, s_t).permute(0, 2, 3, 1).numpy(),
+                                  np.asarray(xq_j))
+
+
+def test_quantized_conv2d_zero_maps_to_zero_and_checks_shapes():
+    wq = torch.ones(8, 4, 3, 3, dtype=torch.int8)
+    s = torch.full((8,), 0.01)
+    y = quantized_conv2d_plain(torch.zeros(1, 4, 8, 8, dtype=torch.bfloat16), wq, s,
+                               stride=1, padding=1)
+    assert torch.equal(y, torch.zeros_like(y))
+    x = torch.randn(1, 4, 8, 8).bfloat16()
+    for bad in (dict(wq=torch.ones(8, 4, 5, 5, dtype=torch.int8), padding=2),
+                dict(wq=wq, padding=0), dict(wq=wq.float(), padding=1),
+                dict(wq=wq, padding=1, stride=3)):
+        kw = {"stride": 1, **bad}
+        with pytest.raises(ValueError):
+            quantized_conv2d(x, kw.pop("wq"), s, **kw)
+    with pytest.raises(RuntimeError, match="no backward"):
+        quantized_conv2d(x.float().requires_grad_(), wq, s, stride=1, padding=1)
+
+
+def test_pack_int8_weight_layout():
+    wq = torch.randint(-127, 128, (6, 130, 3, 3), dtype=torch.int8)
+    p = pack_int8_weight(wq)
+    assert p.shape == (6, 9 * 144) and p.dtype == torch.int8 and p.is_contiguous()
+    taps = p.view(6, 9, 144)
+    assert torch.equal(taps[:, :, :130], wq.permute(0, 2, 3, 1).reshape(6, 9, 130))
+    assert not taps[:, :, 130:].any()
+
+
+@pytest.mark.parametrize("name,fn,argtypes", [
+    ("conv_int8", "conv_int8_launch", conv_int8._ARGTYPES),
+    ("nms_keep", "nms_keep_launch", matrix_nms._KEEP_ARGTYPES)])
+def test_launch_argtypes_match_the_c_signatures(name, fn, argtypes):
+    """ctypes checks nothing: each wrapper's argtypes follow its extern "C"
+    signature (a pointer per pointer, an int per int)."""
+    src = (REPO / "ppyolo_tpu_torch" / "csrc" / f"{name}.cu").read_text()
+    sig = re.search(r'extern "C" int %s\((.*?)\)' % fn, src, re.S).group(1)
+    assert all("*" in p or p.split()[0] == "int" for p in sig.split(","))
+    assert argtypes == [ctypes.c_void_p if "*" in p else ctypes.c_int for p in sig.split(",")]
+
+
+# ---------------------------------------------------------------- the int8 model
+
+def test_calibrate_act_scales_matches_jax():
+    cfg = mini2x_cfg()
+    jm, params = _jax_params(cfg, 5)
+    folded = jopt.fold_bn_params(params)
+    images = np.random.RandomState(6).randn(2, 64, 64, 3).astype(np.float32)
+    want = jopt.calibrate_act_scales(jm, folded, [images])
+    model, sd = _port_sd(cfg, params)
+    got = optimize.calibrate_act_scales(model, optimize.fold_bn_params(sd),
+                                        [_nchw(images, torch.float32)])
+    assert got.keys() == want.keys() and len(got) > 30
+    for k in want:
+        assert abs(got[k] - want[k]) <= 1e-3 * want[k], (k, got[k], want[k])
+
+
+def _int8_model(cfg, params):
+    """The port model in the int8 serving form, as the Detector builds it."""
+    model, sd = _port_sd(cfg, params)
+    sd = optimize.optimize_for_inference(sd, precision="int8")
+    model = model.to(torch.bfloat16, memory_format=torch.channels_last)
+    match_int8_form(model, sd)
+    model.load_state_dict(sd)
+    return model
+
+
+def test_int8_gap_to_jax_is_rounding_order():
+    """ppyolo_2x (6 classes) at 2 x 160 px: the port's int8 head maps and
+    JAX's, each against the exact (fp64, unfolded) forward.  Both quantize
+    the same weights; their bf16 activations round in another order (cuDNN's
+    or the CPU's vs XLA's), which moves some activations across a rounding
+    step of the int8 grid.  Held as the bf16 test holds bf16: the port's gap
+    within 1.1x JAX's by level.  The port's int8-vs-bf16 gap is
+    ``INT8_BF16_GAP``'s measurement."""
+    cfg = _2x_cfg()
+    jm, params = _jax_params(cfg, 123, bn_stats=False)
+    images = np.random.RandomState(42).rand(2, 160, 160, 3).astype(np.float32)
+    jp = jopt.optimize_for_inference(params, precision="int8")
+
+    def maps(p, x):
+        ctx = Ctx(train=False)
+        return jm.head.get_outputs(p["head"], jm.features(p, x, ctx), ctx)
+
+    jouts = [np.asarray(o).astype(np.float32)
+             for o in jax.jit(maps)(jp, jnp.asarray(images, jnp.bfloat16))]
+    model, sd = _port_sd(cfg, params)
+    model.load_state_dict(sd)
+    exact = [_nhwc(o) for o in model.double().outputs(_nchw(images, torch.float64))]
+    int8 = _int8_model(cfg, params)
+    outs = [_nhwc(o) for o in int8.outputs(_nchw(images, torch.bfloat16))]
+    model, sd = _port_sd(cfg, params)
+    model = model.to(torch.bfloat16, memory_format=torch.channels_last)
+    model.load_state_dict(optimize.optimize_for_inference(sd, precision="bf16"))
+    bf16 = [_nhwc(o) for o in model.outputs(_nchw(images, torch.bfloat16))]
+    for level, (o, j, ex, b) in enumerate(zip(outs, jouts, exact, bf16)):
+        gaps = {"port-exact": _rel(o, ex), "jax-exact": _rel(j, ex), "port-jax": _rel(o, j),
+                "port-bf16": _rel(o, b)}
+        print(f"level {level}: " + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items()))
+        assert gaps["port-exact"] <= 1.1 * gaps["jax-exact"], gaps
+        assert gaps["port-bf16"] <= INT8_BF16_GAP, gaps
+
+
+def test_jax_int8_tree_crosses_the_bridge_bitwise():
+    cfg = mini2x_cfg()
+    _, params = _jax_params(cfg, 7)
+    folded = jopt.fold_bn_params(params)
+    scales = {"backbone.stage3_0.conv1": 0.0213, "head.detection_blocks.0.layers.1": 0.0071}
+    jtree = jopt.cast_params(jopt.quantize_params_int8(folded, act_scales=scales),
+                             jnp.bfloat16, keep_fp32_suffixes=(".weight_scale", ".act_scale"))
+    jflat = _np(jtree)
+    assert jflat["backbone.stage3_0.conv1.conv.act_scale"].shape == ()
+    model = PPYOLO.from_config(cfg)
+    got = jax_params_to_state_dict(jflat, model)
+    model.load_state_dict(got)        # the model took the tree's int8 form
+    _, sd = _port_sd(cfg, params)
+    mine = optimize.cast_params(
+        optimize.quantize_params_int8(optimize.fold_bn_params(sd), act_scales=scales),
+        torch.bfloat16, keep_fp32_suffixes=(".weight_scale", ".act_scale"))
+    assert got.keys() == mine.keys()
+    for k, v in mine.items():
+        assert torch.equal(got[k].to(v.dtype), v), k
+        assert got[k].dtype == (torch.int8 if v.dtype == torch.int8 else torch.float32), k
+    back = state_dict_to_jax_params(got)
+    for k, v in jflat.items():
+        assert back[k].dtype == (np.int8 if v.dtype == np.int8 else np.float32), k
+        np.testing.assert_array_equal(back[k], np.asarray(v, back[k].dtype), err_msg=k)
+    # a float tree gives the model its float form back
+    model.load_state_dict(jax_params_to_state_dict(_np(params), model))
+    assert not any(m.conv.is_int8 for m in model.modules() if isinstance(m, ConvNormAct))
+
+
+def test_int8_detector_on_cpu():
+    """Dynamic, then calibrated, then re-set: the act scales pinned on
+    every int8 conv and only there, fp32 through ``Module.to``, dropped by
+    ``set_params``; the calibrated scales near JAX's ``Detector.calibrate``
+    on the same weights."""
+    from ppyolo_tpu.eval.detector import Detector as JaxDetector
+    from ppyolo_tpu_torch.eval.detector import Detector
+
+    cfg = mini2x_cfg()
+    jm, params = _jax_params(cfg, 8)
+    model, sd = _port_sd(cfg, params)
+    det = Detector(model, sd, cfg, target_size=64, precision="int8", device="cpu")
+    assert det.compute_dtype == torch.bfloat16
+    int8 = {n: m for n, m in det.model.named_modules()
+            if isinstance(m, ConvNormAct) and m.conv.is_int8}
+    assert len(int8) == sum(k.endswith("weight_scale") for k in det.model.state_dict()) > 30
+    imgs = np.random.RandomState(9).randint(0, 256, (2, 64, 64, 3)).astype(np.uint8)
+    sizes = np.array([[64, 64], [96, 128]], np.float32)
+    dynamic = det.predict_batch(imgs, sizes)
+    assert dynamic.shape == (2, 100, 6) and np.isfinite(dynamic).all()
+    assert det.calibrate(imgs) == len(int8)
+    det.model.to(torch.bfloat16)     # a cast of the whole model leaves the scales fp32
+    for n, m in det.model.named_modules():
+        if n in int8:
+            assert m.conv.act_scale.dtype == m.conv.weight_scale.dtype == torch.float32
+            assert m.conv.weight.dtype == torch.int8
+        elif isinstance(m, ConvNormAct):
+            assert "act_scale" not in m.conv._buffers
+    jdet = JaxDetector(jm, params, cfg, target_size=64, precision="int8")
+    assert jdet.calibrate(imgs) == len(int8)
+    jflat = _np(jdet.params)
+    rel = sorted(abs(float(m.conv.act_scale) / float(jflat[f"{n}.conv.act_scale"]) - 1)
+                 for n, m in int8.items())
+    # each amax of a bf16 int8 forward: the two round their activations in
+    # another order, which flips some int8 codes and compounds with depth
+    # (measured: 11 of 37 equal, the median 0.6%, the largest 3.7%)
+    assert rel[len(rel) // 2] <= 2 ** -7 and rel[-1] <= 0.05, rel
+    static = det.predict_batch(imgs, sizes)
+    assert static.shape == (2, 100, 6) and np.isfinite(static).all()
+    det.set_params(sd)
+    assert not any(k.endswith("act_scale") for k in det.model.state_dict())
+    np.testing.assert_array_equal(det.predict_batch(imgs, sizes), dynamic)
+    with pytest.raises(ValueError, match="int8"):
+        Detector(PPYOLO.from_config(cfg), sd, cfg, target_size=64, device="cpu").calibrate(imgs)
+
+
+# ---------------------------------------------------------------- multiclass NMS
+
+def _nms_inputs(seed, b, a, c, ties, negative):
+    r = np.random.RandomState(seed)
+    boxes = (r.rand(b, a, 4) * 60).astype(np.float32)
+    boxes[..., 2:] = boxes[..., :2] + 3 + 25 * r.rand(b, a, 2).astype(np.float32)
+    scores = r.randn(b, a, c).astype(np.float32) if negative else \
+        (r.rand(b, a, c) ** 2).astype(np.float32)
+    if ties:
+        scores = np.round(scores * 8) / 8
+    boxes[:, 1] = boxes[:, 0]          # duplicate boxes: IoU 1
+    return boxes, scores
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("ties,negative,top", [(False, False, 60), (True, False, 60),
+                                               (True, True, 60), (False, False, 500)])
+def test_multiclass_nms_is_bitwise_jax(ties, negative, top, dtype):
+    boxes, scores = _nms_inputs(int(ties) + 2 * int(negative) + top, 3, 70, 4, ties, negative)
+    cfg = dict(score_threshold=-0.5 if negative else 0.1, nms_threshold=0.45,
+               nms_top_k=top, keep_top_k=30, nms_type="multiclass_nms")
+    sj = jnp.asarray(scores, getattr(jnp, dtype))
+    want = np.asarray(jax_multiclass_nms(jnp.asarray(boxes), sj, cfg))
+    st = torch.from_numpy(np.array(sj.astype(jnp.float32))).to(getattr(torch, dtype))
+    got = matrix_nms.multiclass_nms(torch.from_numpy(boxes), st, cfg).numpy()
+    assert got.shape == want.shape == (3, 30, 6)
+    np.testing.assert_array_equal(got, want)
+    assert (got[..., 0] >= 0).sum() > 10
+
+
+def test_multiclass_nms_matches_the_greedy_oracle():
+    """``tests/test_ops.py::test_multiclass_nms_matches_greedy_oracle``'s
+    inputs and oracle, against the port."""
+    r = np.random.RandomState(11)
+    a, c = 40, 4
+    boxes = r.rand(a, 4).astype(np.float32) * 60
+    boxes[:, 2:] = boxes[:, :2] + 3 + 25 * r.rand(a, 2).astype(np.float32)
+    scores = (r.rand(a, c).astype(np.float32) ** 2)
+    cfg = dict(score_threshold=0.1, nms_threshold=0.45, nms_top_k=60, keep_top_k=30,
+               nms_type="multiclass_nms")
+    out = matrix_nms.multiclass_nms(torch.from_numpy(boxes[None]),
+                                    torch.from_numpy(scores[None]), cfg)[0].numpy()
+    got = out[out[:, 0] >= 0]
+    flat = scores.flatten()
+    keep_rows = []
+    for f in np.argsort(-flat, kind="stable"):
+        s = flat[f]
+        if s <= cfg["score_threshold"]:
+            break
+        lbl, b = f % c, boxes[f // c]
+        sup = False
+        for (l2, _, bx) in keep_rows:
+            if l2 != lbl:
+                continue
+            xa, ya = max(b[0], bx[0]), max(b[1], bx[1])
+            xb, yb = min(b[2], bx[2]), min(b[3], bx[3])
+            inter = max(xb - xa, 0) * max(yb - ya, 0)
+            u = ((b[2] - b[0]) * (b[3] - b[1]) + (bx[2] - bx[0]) * (bx[3] - bx[1]) - inter)
+            if inter / u > cfg["nms_threshold"]:
+                sup = True
+                break
+        if not sup:
+            keep_rows.append((lbl, s, b))
+    keep_rows = keep_rows[:cfg["keep_top_k"]]
+    assert len(got) == len(keep_rows) > 5
+    for row, (lbl, s, b) in zip(got, keep_rows):
+        assert row[0] == lbl
+        np.testing.assert_allclose(row[1], s, rtol=1e-5)
+        np.testing.assert_allclose(row[2:], b, rtol=1e-5)
+
+
+def test_nms_keep_plain_is_the_sequential_greedy_walk():
+    r = np.random.RandomState(12)
+    b, k = 3, 90
+    valid = torch.from_numpy(r.rand(b, k) < 0.8)
+    sup = torch.from_numpy(r.rand(b, k, k) < 0.08) & torch.triu(torch.ones(k, k, dtype=bool), 1)
+    got = matrix_nms.nms_keep(valid, sup)
+    for i in range(b):
+        removed = np.zeros(k, bool)
+        keep = np.zeros(k, bool)
+        for j in range(k):
+            keep[j] = bool(valid[i, j]) and not removed[j]
+            if keep[j]:
+                removed |= sup[i, j].numpy()
+        np.testing.assert_array_equal(got[i].numpy(), keep)
+    with pytest.raises(ValueError):
+        matrix_nms.nms_keep(valid, sup[:, :, :5])
+
+
+def test_multiclass_head_predict_matches_jax():
+    """The head's ``nms_type`` switch: mini-2x in fp64 on both sides, the
+    detections at test_golden's tolerances."""
+    cfg = mini2x_cfg()
+    cfg.nms_cfg = dict(cfg.nms_cfg, nms_type="multiclass_nms", nms_threshold=0.45)
+    jm, params = _jax_params(cfg, 10, bn_stats=False)
+    images = np.random.RandomState(13).rand(2, 64, 64, 3)
+    im_size = np.array([[64, 64], [100, 80]], np.float64)
+    with jax.enable_x64(True):
+        p64 = jax.tree_util.tree_map(lambda a: jnp.asarray(np.asarray(a, np.float64)), params)
+        want = np.asarray(jax.jit(lambda p, x, s: jm.predict(p, x, s, Ctx(train=False)))(
+            p64, jnp.asarray(images), jnp.asarray(im_size)))
+    model, sd = _port_sd(cfg, params)
+    model.load_state_dict(sd)
+    got = model.double().predict(_nchw(images, torch.float64),
+                                 torch.from_numpy(im_size)).numpy()
+    assert got.shape == want.shape and (want[..., 0] >= 0).sum() > 10
+    np.testing.assert_array_equal(got[..., 0], want[..., 0])
+    np.testing.assert_allclose(got[..., 1:], want[..., 1:], rtol=1e-6, atol=1e-6)
