@@ -24,11 +24,14 @@ Phases, one JSON line each; any failure exits non-zero:
                also beside one cuDNN ``F.conv2d`` call (``library_ms``).
                K5 (the int8 conv) at every int8 conv shape of ppyolo_2x@608
                b8 (65 convs, 32 shapes, 28 (k, Cin, Cout) classes, read by
-               hooks in one forward) bit-equal to ``quantized_conv2d_plain``
-               with the dynamic scale and a static one that clips, timed
-               beside the plain version, cuDNN's bf16 ``F.conv2d`` of the
-               shape (``library_ms``) and ``torch._int_mm`` on the 1x1s it
-               takes; K6 (the greedy NMS keep) at b8, k = 500 bit-equal to
+               hooks in one 32-px forward) bit-equal to
+               ``quantized_conv2d_plain`` with the dynamic scale and a
+               static one that clips, timed beside the plain version,
+               cuDNN's bf16 ``F.conv2d`` of the shape (``library_ms``) and
+               ``torch._int_mm`` on the 1x1s it takes, in total and by
+               class (3x3 s1, 3x3 s2, 1x1 with C % 8 = 0, 1x1 with C = 2
+               mod 8), each shape with its ``k5_plan`` and blocks per SM;
+               K6 (the greedy NMS keep) at b8, k = 500 bit-equal to
                the plain fixpoint; bounds at 1,979 TOP/s int8.
                Weights are packed once, outside the timed window.  K1 and
                K3 are timed inside a CUDA graph of 20 calls
@@ -354,8 +357,9 @@ def phase_build():
 
 def occupancy(name: str, *args: int) -> dict:
     """The bf16 kernel's blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor,
-    exported by its library; ``args`` picks one of K3's two kernels) beside
-    ptxas's registers and shared memory."""
+    exported by its library; ``args`` picks one of K3's two kernels, or K5's
+    warpgroup layout and shared memory) beside ptxas's registers and shared
+    memory."""
     from ppyolo_tpu_torch.ops import _build
 
     fn = {"conv_s2": "conv_s2_bf16_blocks_per_sm", "fused_stem": "fused_stem_blocks_per_sm",
@@ -549,52 +553,40 @@ def kernel_k4(gen, dev) -> dict:
 
 
 def int8_conv_shapes(cfg):
-    """The int8 convs of ``cfg``'s model served at SIZE, batch BATCH: the
-    convs ``quantize_params_int8`` quantizes, each one's input read by a
-    hook in one bf16 forward on the card.  Returns ([(C, H, W, Co, k,
-    stride, convs of that shape)], the number of int8 convs)."""
-    import torch
-    from ppyolo_tpu_torch.eval.optimize import quantize_params_int8
+    """The int8 convs of ``cfg``'s model served at SIZE, batch BATCH
+    (``eval.optimize.int8_conv_shapes``: hooks in one 32-px forward on the
+    CPU).  Returns ([(C, H, W, Co, k, stride, convs of that shape)], the
+    number of int8 convs)."""
+    from ppyolo_tpu_torch.eval.optimize import int8_conv_shapes as shapes_of
     from ppyolo_tpu_torch.models import PPYOLO
-    from ppyolo_tpu_torch.ops.conv import ConvNormAct
 
-    model = PPYOLO.from_config(cfg)
-    q = quantize_params_int8(model.state_dict())
-    mods = [m for n, m in model.named_modules() if isinstance(m, ConvNormAct)
-            and f"{n}.conv.weight_scale" in q]
-    found = {}
-
-    def hook(m, inp):
-        _, c, h, w = inp[0].shape
-        key = (c, h, w, m.cout, m.ksize, m.stride)
-        found[key] = found.get(key, 0) + 1
-
-    hooks = [m.register_forward_pre_hook(hook) for m in mods]
-    model = model.to("cuda", torch.bfloat16, memory_format=torch.channels_last).eval()
-    x = torch.zeros(1, 3, SIZE, SIZE, device="cuda", dtype=torch.bfloat16)
-    model.outputs(x.contiguous(memory_format=torch.channels_last))
-    for h in hooks:
-        h.remove()
-    if sum(found.values()) != len(mods):
-        raise AssertionError(f"{len(mods)} int8 convs, {sum(found.values())} ran")
-    return [(*k, n) for k, n in sorted(found.items())], len(mods)
+    shapes = shapes_of(PPYOLO.from_config(cfg).eval(), SIZE, BATCH)
+    return shapes, sum(s[-1] for s in shapes)
 
 
 def kernel_k5(gen, dev) -> dict:
     """K5 at every int8 conv shape of ppyolo_2x@608 b8 (stride 1 and 2,
     the CoordConv C = 2 mod 8 tails), bit-equal to ``quantized_conv2d_plain``
-    with the dynamic scale and with a static one that clips; timed with the
-    static scale (the kernel alone) and the dynamic one (with the amax),
-    beside the plain version, cuDNN's bf16 ``F.conv2d`` of the same shape
-    (``library_ms``) and, on the 1x1 stride-1 convs with C % 8 == 0,
-    ``torch._int_mm`` on the quantized activation.  Per batch: each shape's
-    time times the convs of that shape (65 launches)."""
+    with the dynamic scale and with a static one that clips; timed inside a
+    CUDA graph of 20 calls (``kernel_ab.graph_ms``: at these sizes the
+    wrapper's host work would otherwise show; ``wrapper_ms`` is the eager
+    time) with the static scale (the kernel alone) and the dynamic one
+    (with the amax), beside the plain version, cuDNN's bf16 ``F.conv2d`` of
+    the same shape (``library_ms``) and, on the 1x1 stride-1 convs with
+    C % 8 == 0, ``torch._int_mm`` on the quantized activation, both graphed
+    too.  Per batch: each shape's time times the convs of that shape (65
+    launches), in total and by class (``int8_conv_class``); each shape's row
+    carries its plan (``k5_plan`` for the card's SMs), whose blocks per SM
+    must be those the occupancy API gives at the plan's shared memory."""
     import torch
     import torch.nn.functional as F
     from configs import PPYOLO_2x_Config
-    from ppyolo_tpu_torch.ops.conv_int8 import (dynamic_act_scale, pack_int8_weight,
+    from ppyolo_tpu_torch.eval.optimize import int8_conv_class
+    from ppyolo_tpu_torch.ops import _build
+    from ppyolo_tpu_torch.ops.conv_int8 import (dynamic_act_scale, k5_plan, pack_int8_weight,
                                                 quantize_act, quantized_conv2d,
-                                                quantized_conv2d_plain)
+                                                quantized_conv2d_plain, sm_count)
+    from ppyolo_tpu_torch.tools.kernel_ab import graph_ms
 
     shapes, n_convs = int8_conv_shapes(PPYOLO_2x_Config())
     classes = {(k, c, co) for c, _, _, co, k, _, _ in shapes}
@@ -602,8 +594,10 @@ def kernel_k5(gen, dev) -> dict:
         raise AssertionError(f"{n_convs} int8 convs in {len(classes)} (k, Cin, Cout) classes: "
                              f"want {INT8_CONVS} in {INT8_CLASSES}")
     rows = []
-    k5 = {"ms": 0.0, "ms_dynamic": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-          "max_abs_err": 0.0, "int_mm_ms": 0.0, "int_mm_k5_ms": 0.0, "int_mm_convs": 0}
+    k5 = {"ms": 0.0, "ms_dynamic": 0.0, "wrapper_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+          "bound_ms": 0.0, "max_abs_err": 0.0, "int_mm_ms": 0.0, "int_mm_k5_ms": 0.0,
+          "int_mm_convs": 0}
+    by_class = {}
     t_ops = t_bytes = ops_batch = 0.0
     for c, h, w, co, k, stride, count in shapes:
         x = (torch.randn(BATCH, c, h, w, generator=gen) * 1.5).to(dev, torch.bfloat16)
@@ -624,16 +618,16 @@ def kernel_k5(gen, dev) -> dict:
                         f"K5 {(c, h, w, co, k, stride)} act_scale {act is not None}: not "
                         f"bit-equal, max abs {float((got.float() - want.float()).abs().max())}")
             wb = (wq.float() * ws.view(-1, 1, 1, 1)).to(torch.bfloat16)
-            ms = cuda_ms(lambda: quantized_conv2d(x, wq, ws, act_scale=static, packed=packed,
-                                                  **kw), 20)
-            msd = cuda_ms(lambda: quantized_conv2d(x, wq, ws, packed=packed, **kw), 20)
+            run_s = lambda: quantized_conv2d(x, wq, ws, act_scale=static, packed=packed, **kw)
+            ms, wms = graph_ms(run_s, 20), cuda_ms(run_s, 20)
+            msd = graph_ms(lambda: quantized_conv2d(x, wq, ws, packed=packed, **kw), 20)
             pms = cuda_ms(lambda: quantized_conv2d_plain(x, wq, ws, act_scale=static, **kw), 3)
-            lms = cuda_ms(lambda: F.conv2d(x, wb, **kw), 20)
+            lms = graph_ms(lambda: F.conv2d(x, wb, **kw), 20)
             imm = None
             if k == 1 and stride == 1 and c % 8 == 0 and co % 8 == 0:
                 a = quantize_act(x, static).permute(0, 2, 3, 1).reshape(-1, c)
                 b = wq.view(co, c).t()
-                imm = cuda_ms(lambda: torch._int_mm(a, b), 20)
+                imm = graph_ms(lambda: torch._int_mm(a, b), 20)
                 k5["int_mm_ms"] += count * imm
                 k5["int_mm_k5_ms"] += count * ms
                 k5["int_mm_convs"] += count
@@ -644,15 +638,38 @@ def kernel_k5(gen, dev) -> dict:
         t_ops += count * ops / PEAK_INT8_OPS * 1e3
         t_bytes += count * nbytes / PEAK_BYTES * 1e3
         ops_batch += count * ops
+        plan = k5_plan(BATCH, h, w, c, co, k, stride, sm_count(dev))
+        bps = occupancy("conv_int8", plan.wg_m, plan.m_tiles, plan.smem_bytes)["blocks_per_sm"]
+        if bps != plan.blocks_per_sm:
+            raise AssertionError(f"K5 {(c, h, w, co, k, stride)}: the plan counts "
+                                 f"{plan.blocks_per_sm} blocks an SM, the occupancy API {bps}")
         rows.append({"x": [BATCH, h, w, c], "co": co, "k": k, "stride": stride, "convs": count,
-                     "ms": ms, "ms_dynamic": msd, "plain_ms": pms, "library_ms": lms,
+                     "ms": ms, "ms_dynamic": msd, "wrapper_ms": wms, "plain_ms": pms,
+                     "library_ms": lms,
                      "int_mm_ms": imm, "bound_ms": b, "bound_by": by, "gop": ops / 1e9,
                      "mbytes": nbytes / 1e6, "tops": ops / ms / 1e9, "x_bound": ms / b,
-                     "x_library": ms / lms, "max_abs_err": 0.0})
+                     "x_library": ms / lms, "max_abs_err": 0.0,
+                     "plan": {"wg_m": plan.wg_m, "m_tiles": plan.m_tiles,
+                              "grid": list(plan.grid),
+                              "tiles_per_block": plan.tiles_per_block,
+                              "smem_bytes": plan.smem_bytes,
+                              "quant_per_element": plan.quant_per_element,
+                              "blocks_per_sm": bps}})
         emit({"phase": "kernel_check", "kernel": "conv_int8", **rows[-1]})
-        for key, v in (("ms", ms), ("ms_dynamic", msd), ("plain_ms", pms),
+        for key, v in (("ms", ms), ("ms_dynamic", msd), ("wrapper_ms", wms), ("plain_ms", pms),
                        ("library_ms", lms), ("bound_ms", b)):
             k5[key] += count * v
+        cls = by_class.setdefault(int8_conv_class(k, c, stride),
+                                  {"convs": 0, "ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+                                   "int_mm_ms": None, "gop": 0.0})
+        cls["convs"] += count
+        for key, v in (("ms", ms), ("library_ms", lms), ("bound_ms", b), ("gop", ops / 1e9)):
+            cls[key] += count * v
+        if imm is not None:
+            cls["int_mm_ms"] = (cls["int_mm_ms"] or 0.0) + count * imm
+    for cls in by_class.values():
+        cls.update(tops=cls["gop"] / cls["ms"], x_bound=cls["ms"] / cls["bound_ms"],
+                   x_library=cls["ms"] / cls["library_ms"])
     return dict(
         name="conv_int8", route="cuda", source="ppyolo_tpu_torch/csrc/conv_int8.cu",
         replaces="ppyolo_tpu/ops/conv.py:88",
@@ -661,7 +678,8 @@ def kernel_k5(gen, dev) -> dict:
         per=f"batch of 8 ({INT8_CONVS} launches over {len(shapes)} shapes in {INT8_CLASSES} "
             f"(k, Cin, Cout) classes; static scale; library: cuDNN bf16 F.conv2d)",
         tops=ops_batch / k5["ms"] / 1e9, x_bound=k5["ms"] / k5["bound_ms"],
-        x_library=k5["ms"] / k5["library_ms"], occupancy=occupancy("conv_int8"),
+        x_library=k5["ms"] / k5["library_ms"], by_class=by_class,
+        occupancy={"ptxas": ptxas_lines(_build.PTXAS_REPORT.get("conv_int8", ""))},
         shapes=rows, **k5)
 
 

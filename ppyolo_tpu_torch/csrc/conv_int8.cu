@@ -1,5 +1,5 @@
 // K5: int8 conv of the int8 serving mode (k in {1, 3}, stride in {1, 2}, pad
-// (k-1)/2) as an implicit GEMM for Hopper (sm_90a).
+// (k-1)/2) as an implicit GEMM on wgmma s8 for Hopper (sm_90a).
 //
 // Replaces the int8 lax.conv_general_dilated of
 // ppyolo_tpu/ops/conv.py::quantized_conv2d.  No Pallas kernel stands behind it:
@@ -12,306 +12,490 @@
 // p at tap (dy, dx) reads input pixel (oy*stride + dy - pad, ox*stride + dx -
 // pad); outside the image it reads 0.
 //
-// * The A tile is quantized as it is loaded: each thread reads 8 bf16
-//   channels of a pixel (one 16-byte load when C % 8 == 0, else 4- or 2-byte
-//   loads), computes clip(rint(f32(x) / s_x), -127, 127) with a true division
-//   (__fdiv_rn) and round half to even (__float2int_rn), and stores 8 int8
-//   bytes in shared memory.  Padding and channels past C load as 0 and stay 0.
-//   So no int8 activation tensor is ever written to device memory.
-// * B is the packed weight, K-major [Co, k*k*Cp] int8 (pack_int8_weight: each
-//   tap's C channels zero-padded to Cp, a multiple of 16, so every 16-byte
-//   load is aligned and the K tail reads zeros).
-// * The product is mma.sync m16n8k32 s8 x s8 -> s32, A and B fragments read
-//   from shared memory by 32-bit loads (rows 80 bytes apart: conflict-free).
-//   Block tile 128 pixels x 128 channels x 64 bytes of K, 8 warps of 32 x 64.
-//   Two shared-memory stages: the next chunk's global loads are issued before
-//   the current chunk's products and quantized into the other stage after.
-// * Epilogue: y = bf16_rn(f32_rn(acc) * (s_x * w_scale[o])) (+ bias, added in
-//   fp32 and rounded to bf16 once more), the JAX order, every step correctly
-//   rounded (no FMA contraction), so the result is bit-equal to the plain
-//   version (ops/conv_int8.py::quantized_conv2d_plain).
+// Bound on the H100 (ppyolo_2x@608 b8): the 65 convs do 694 GOP against
+// 1,979 TOP/s of int8 tensor cores, and read 1.25 GB of bf16 activations and
+// write 1.00 GB at 3.35 TB/s: most are bound by bytes.  What held the first
+// form (mma.sync, quantize on load) at 17x its bound: each activation was
+// quantized, with an IEEE division, once per tap and once per 128-channel
+// column block.  This form:
 //
-// Bound on the H100 (ppyolo_2x@608 b8): the 65 convs are 1,979 TOP/s int8
-// tensor-core work against bf16 activations read once and written once at
-// 3.35 TB/s; most are bound by bytes (chip_smoke prints each shape's bound).
-// This first form is simple and right; wgmma s8, TMA and a fused amax for the
-// dynamic scale are later work.
+// * Quantizes each input element once per block that reads it.  A block owns
+//   BM output pixels and loads the input they read once, quantized into an int8
+//   A tile resident in shared memory for the whole block:
+//     - 1x1 ("linear"): BM pixels x all of C;
+//     - 3x3 ("halo"): a patch of 8 * WG_M x 8 * MT output pixels and its input
+//       halo, which the nine taps read as shifted windows.  Under stride 2 the
+//       halo is stored as four parity planes, so a tap's 8 output columns
+//       still read 8 consecutive slots.
+//   The block walks its share of Co (tiles_per_block tiles of BN channels)
+//   with that tile resident; the host plan (ops/conv_int8.py::k5_plan)
+//   splits Co across blocks only as far as filling the card pays.  A warp
+//   quantizes 8 slots x 4 groups at a time: 8 runs of 128 contiguous bytes.
+//   Quantization is clip(rint(RN(f32(x) / s_x)), -127, 127).  The quotient
+//   is correctly rounded by a reciprocal multiply and one exact FMA
+//   correction (Markstein); __fdiv_rn, which cost ~2 ms a b8@608 batch,
+//   remains only for a scale outside [2^-64, 2^64].  The clip is in fp32 and
+//   the round half to even an add of 1.5 * 2^23 (the int8 is the low byte
+//   of the sum), so no conversion unit.
+// * The A tile is wgmma's non-swizzled K-major layout: slot s (a pixel) and
+//   16-channel group g at byte (g * a_slots + s) * 16, so 8 consecutive slots
+//   form one 8 x 16-byte core matrix.  A tap's operand is the same descriptor
+//   moved by its slot offset x 16 bytes; LBO (next group along K) = a_slots *
+//   16, SBO (next 8 output pixels) = 128 (linear) or plane_w * 16 (halo).
+// * The products are wgmma m64n128k32 s8 x s8 -> s32, A and B from shared
+//   memory.  Two warpgroups in one of three layouts: both on BN = 128
+//   channels with one m64 tile each (BM = 128) or two (BM = 256, half the
+//   weight's L2 traffic per product, one block an SM by registers), or
+//   splitting BN = 256 over BM = 64 (the 1x1s whose C is too wide for 128
+//   rows); the plan picks one per shape.  The weight streams through a
+//   5-stage ring of 64-byte K chunks by cp.async (the next chunks in flight
+//   while wgmma runs), from pack_int8_weight's group-major [k*k*Cp/16, Co,
+//   16] int8, so a chunk is BN consecutive 16-byte rows per group: coalesced
+//   and conflict-free.  Cp = C rounded up to 32; a tap with an odd number of
+//   k32 steps issues its last chunk's second step on a zero-filled B (its A
+//   reads past the tile, inside the block's shared memory).
+// * Epilogue from the accumulators, with each Co tile's s_x * w_scale[o] and
+//   bias staged in shared memory at the tile's start (two tiles' worth, so
+//   the next tile's never overwrites what a slow warp still reads): y =
+//   bf16_rn(f32_rn(acc) * (s_x * w_scale[o])) (+ bias, added in fp32 and
+//   rounded to bf16 once more), the JAX order, every step correctly rounded
+//   (no FMA contraction), so the result is bit-equal to the plain version
+//   (quantized_conv2d_plain); the int32 sum is exact in any order.
 //
 // Layouts: x NHWC bf16, y NHWC [N, oH, oW, Co] bf16, w_scale [Co] fp32, s_x one
-// fp32 on the device, bias [Co] bf16 or null.  Requires Co even and x and the
-// packed weight 16-byte aligned (checked by the wrapper).
+// fp32 on the device, bias [Co] bf16 or null.  Requires Co even, x 4-byte and
+// the packed weight 16-byte aligned (checked by the wrapper).  The wrapper
+// passes the plan: the layout, the Co tiles a block walks, the A tile's
+// slots and halo planes, the grid and the dynamic shared memory.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
 namespace {
 
-constexpr int BM = 128;            // output pixels per block
-constexpr int BN = 128;            // output channels per block
-constexpr int BK = 64;             // K bytes (input channels of one tap) per chunk
-constexpr int THREADS = 256;       // 8 warps: 4 along M x 2 along N, 32 x 64 each
-constexpr int LDS = BK + 16;       // shared row stride in bytes
-constexpr int A_TILE = BM * LDS;
-constexpr int B_TILE = BN * LDS;
-constexpr int STAGE = A_TILE + B_TILE;
+constexpr int THREADS = 256;  // two warpgroups
+constexpr int WN = 128;       // output channels of one warpgroup's wgmma
+constexpr int KC = 64;        // K bytes of one ring stage (two k32 steps)
+constexpr int STAGES = 5;     // ring depth: 3 chunks in flight ahead of the one wgmma reads
+constexpr int QU = 4;         // A-tile units a warp loads before it quantizes them
+constexpr int WS = 8, WG = 4;  // a warp's unit: WS slots x WG 16-channel groups
+constexpr int SMEM_MAX = 232448;  // 227 KB: the most a block may opt in to
 
 struct Geom {
-  int H, W, C, Cp, Co, k, stride, pad, oH, oW, M, Kp, cchunks, KT;
+  int H, W, C, Cp, Co, M;  // M = N*oH*oW output pixels; Cp = C rounded up to 32
+  int oH, oW, k, stride, pad;
+  int tiles_per_block, co_tiles;
+  int plane_h, plane_w;      // halo: the A tile's parity planes (1 plane at stride 1)
+  int a_slots;               // pixel slots of the A tile
+  int tiles_x, tiles_y;      // halo: patches per image along x and y
+  int ring_off, tab_off, ep_off;  // shared-memory layout after the A tile
 };
 
-__device__ __forceinline__ uint32_t lds32(const uint8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+// s_x's range where quant1 divides by a reciprocal multiply and one exact
+// FMA correction (Markstein): r = RN(1/s) and the correction are then normal.
+constexpr float RCP_LO = 5.421010862e-20f, RCP_HI = 1.844674407e19f;  // 2^-64, 2^64
 
-// One int8 of bf16 bits `h` (the low 16 bits) at scale s.
-__device__ __forceinline__ uint32_t quant1(uint32_t h, float s) {
-  const float v = __uint_as_float((h & 0xffffu) << 16);
-  int q = __float2int_rn(__fdiv_rn(v, s));
-  q = min(max(q, -127), 127);
-  return static_cast<uint32_t>(q) & 0xffu;
-}
-
-// 8 bf16 (a uint4) -> 8 int8 (a uint2), channel order kept.
-__device__ __forceinline__ uint2 quant8(uint4 r, float s) {
-  uint2 o;
-  o.x = quant1(r.x, s) | (quant1(r.x >> 16, s) << 8) | (quant1(r.y, s) << 16) |
-        (quant1(r.y >> 16, s) << 24);
-  o.y = quant1(r.z, s) | (quant1(r.z >> 16, s) << 8) | (quant1(r.w, s) << 16) |
-        (quant1(r.w >> 16, s) << 24);
-  return o;
-}
-
-// Channels c .. c+7 of the pixel whose channel 0 is at element `off` of x,
-// as 8 bf16 in a uint4; 0 where the pixel is outside the image or c+j >= C.
-// VEC is the channels one load reads: 8 (C % 8 == 0), 2 (C even) or 1.
-template <int VEC>
-__device__ __forceinline__ uint4 load8(const __nv_bfloat16* __restrict__ x, long long off,
-                                       int c, int C, bool ok) {
-  uint4 r = make_uint4(0u, 0u, 0u, 0u);
-  if (!ok) return r;
-  if (VEC == 8) {
-    if (c < C) r = __ldg(reinterpret_cast<const uint4*>(x + off + c));
-    return r;
+// A bf16 in the high half of `bits_hi` (the low half 0) -> its int8 in the
+// low byte of the result: clip(rint(RN(v / s)), -127, 127).  EXACT: a
+// correctly rounded division.  Otherwise q0 = RN(v * r) with r = RN(1/s),
+// then RN(q0 + r * (v - q0 * s)), the remainder exact by FMA, which is the
+// correctly rounded quotient (Markstein) wherever it can reach the int8
+// range (|q0| < 256; past it the clip decides and q0's sign suffices).
+template <bool EXACT>
+__device__ __forceinline__ uint32_t quant1(uint32_t bits_hi, float s, float r) {
+  const float v = __uint_as_float(bits_hi);
+  float t;
+  if (EXACT) {
+    t = __fdiv_rn(v, s);
+  } else {
+    const float q0 = __fmul_rn(v, r);
+    const float q1 = __fmaf_rn(__fmaf_rn(-q0, s, v), r, q0);
+    t = fabsf(q0) < 256.f ? q1 : q0;
   }
-  const unsigned short* p = reinterpret_cast<const unsigned short*>(x + off);
-  uint32_t h[8];
+  t = fminf(fmaxf(t, -127.f), 127.f);
+  return __float_as_uint(__fadd_rn(t, 12582912.f));  // 1.5 * 2^23: rint, half to even
+}
+
+// Two bf16 pairs (channel order: lo of a, hi of a, lo of b, hi of b) -> 4 int8.
+template <bool EXACT>
+__device__ __forceinline__ uint32_t quant4(uint32_t a, uint32_t b, float s, float r) {
+  const uint32_t q0 = quant1<EXACT>(a << 16, s, r), q1 = quant1<EXACT>(a & 0xffff0000u, s, r);
+  const uint32_t q2 = quant1<EXACT>(b << 16, s, r), q3 = quant1<EXACT>(b & 0xffff0000u, s, r);
+  return __byte_perm(__byte_perm(q0, q1, 0x0040), __byte_perm(q2, q3, 0x0040), 0x5410);
+}
+
+// Channels c .. c+15 of the pixel whose channel 0 is at `src`, as 8 bf16
+// pairs; 0 where c + j >= C.  vec: channels one load reads (8: C % 8 == 0,
+// 2: C even, 1).
+__device__ __forceinline__ void load16(const __nv_bfloat16* __restrict__ src, int c, int C,
+                                       int vec, uint32_t (&h)[8]) {
+  if (vec == 8) {
+    uint4 a = make_uint4(0u, 0u, 0u, 0u), b = a;
+    if (c < C) a = __ldg(reinterpret_cast<const uint4*>(src + c));
+    if (c + 8 < C) b = __ldg(reinterpret_cast<const uint4*>(src + c + 8));
+    h[0] = a.x, h[1] = a.y, h[2] = a.z, h[3] = a.w;
+    h[4] = b.x, h[5] = b.y, h[6] = b.z, h[7] = b.w;
+    return;
+  }
+  const unsigned short* p = reinterpret_cast<const unsigned short*>(src);
 #pragma unroll
-  for (int j = 0; j < 8; j += VEC) {
-    if (VEC == 2) {
-      const uint32_t v = c + j < C ? __ldg(reinterpret_cast<const unsigned int*>(p + c + j)) : 0u;
-      h[j] = v & 0xffffu;
-      h[j + 1] = v >> 16;
+  for (int j = 0; j < 8; ++j) {
+    const int cj = c + 2 * j;
+    if (vec == 2) {
+      h[j] = cj < C ? __ldg(reinterpret_cast<const unsigned int*>(p + cj)) : 0u;
     } else {
-      h[j] = c + j < C ? static_cast<uint32_t>(__ldg(p + c + j)) : 0u;
+      const uint32_t lo = cj < C ? static_cast<uint32_t>(__ldg(p + cj)) : 0u;
+      const uint32_t hi = cj + 1 < C ? static_cast<uint32_t>(__ldg(p + cj + 1)) : 0u;
+      h[j] = lo | (hi << 16);
     }
   }
-  r.x = h[0] | (h[1] << 16);
-  r.y = h[2] | (h[3] << 16);
-  r.z = h[4] | (h[5] << 16);
-  r.w = h[6] | (h[7] << 16);
-  return r;
 }
 
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// The A tile: item (slot s, group gq) at byte (gq * a_slots + s) * 16 of
+// `tile`, the 16 channels 16 gq .. of slot s's input pixel (in_tab[s], or
+// -1 for zeros) quantized (r = RN(1 / s_x)).  A warp takes WS slots x WG
+// groups at a time (lane l: slot l / WG, group l % WG), so it reads WS runs
+// of WG * 32 contiguous bytes and stores WG runs of WS * 16; it issues the
+// loads of QU such units before it quantizes any of them.
+template <bool EXACT>
+__device__ __forceinline__ void quantize_tile(const __nv_bfloat16* __restrict__ x, float sx,
+                                              float rx, const Geom& g, int vec,
+                                              const int* in_tab, unsigned char* tile) {
+  const int gpt = g.Cp / 16;
+  const int nsb = (g.a_slots + WS - 1) / WS, units = nsb * ((gpt + WG - 1) / WG);
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  for (int u0 = warp; u0 < units; u0 += QU * (THREADS / 32)) {
+    uint32_t h[QU][8];
+    int at[QU];  // the item's byte / 16 in the tile, or -1
+#pragma unroll
+    for (int u = 0; u < QU; ++u) {
+      const int unit = u0 + u * (THREADS / 32);
+      const int gb = unit / nsb, sb = unit - gb * nsb;
+      const int s = sb * WS + lane / WG, gq = gb * WG + lane % WG;
+      const bool live = unit < units && s < g.a_slots && gq < gpt;
+      at[u] = live ? gq * g.a_slots + s : -1;
+      const int pix = live ? in_tab[s] : -1;
+      if (pix >= 0 && 16 * gq < g.C) {
+        load16(x + (long long)pix * g.C, 16 * gq, g.C, vec, h[u]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) h[u][j] = 0u;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < QU; ++u) {
+      if (at[u] < 0) continue;
+      uint4 q;
+      q.x = quant4<EXACT>(h[u][0], h[u][1], sx, rx);
+      q.y = quant4<EXACT>(h[u][2], h[u][3], sx, rx);
+      q.z = quant4<EXACT>(h[u][4], h[u][5], sx, rx);
+      q.w = quant4<EXACT>(h[u][6], h[u][7], sx, rx);
+      *reinterpret_cast<uint4*>(tile + (size_t)at[u] * 16) = q;
+    }
+  }
 }
 
-template <int VEC>
-__global__ void __launch_bounds__(THREADS)
+// Slot offset of tap `tap` from a row's tap-(0, 0) slot in the A tile.
+__device__ __forceinline__ int tap_slots(int tap, const Geom& g) {
+  if (g.k == 1) return 0;
+  const int dy = tap / 3, dx = tap - 3 * dy;
+  const int plane = (dy % g.stride) * g.stride + dx % g.stride;
+  return plane * g.plane_h * g.plane_w + (dy / g.stride) * g.plane_w + dx / g.stride;
+}
+
+// WG_M warpgroups along M (2: both on BN = 128 channels; 1: the two split
+// BN = 256), each MT m64 tiles deep: BM = 64 * WG_M * MT output pixels.  A
+// 3x3 block's patch is 8 * WG_M rows x 8 * MT columns, its m64 tiles 8 x 8
+// sub-patches; a 1x1 block's pixels are consecutive.
+template <int WG_M, int MT>
+__global__ void __launch_bounds__(THREADS, MT == 1 ? 2 : 1)
 conv_int8_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
                  const float* __restrict__ w_scale, const float* __restrict__ s_x_ptr,
                  const __nv_bfloat16* __restrict__ bias, __nv_bfloat16* __restrict__ y,
-                 Geom g) {
-  __shared__ __align__(16) uint8_t smem[2 * STAGE];
+                 Geom g, int vec) {
+  constexpr int BM = 64 * WG_M * MT;
+  constexpr int BN = WN * (2 / WG_M);
+  constexpr int STAGE_BYTES = BN * KC;
+  constexpr int B_COPIES = BN * (KC / 16) / THREADS;  // 16-byte copies a thread, a chunk
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = sm90::smem_u32(smem_raw);
+  const uint32_t base = (raw + 127u) & ~127u;
+  unsigned char* const gbase = smem_raw + (base - raw);
+  int* const in_tab = reinterpret_cast<int*>(gbase + g.tab_off);  // slot -> input pixel or -1
+  int* const out_tab = in_tab + g.a_slots;                        // row -> output pixel or -1
 
   const int tid = threadIdx.x;
-  const int lane = tid % 32, warp = tid / 32;
-  const int p0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const float sx = *s_x_ptr;
+  const int wg = tid / 128;
+  const int wm = WG_M == 2 ? wg : 0, wn = WG_M == 2 ? 0 : wg;
+  const int tile0 = blockIdx.y * g.tiles_per_block;
+  const int ntiles = min(g.tiles_per_block, g.co_tiles - tile0);
+  const int gpt = g.Cp / 16;                 // 16-byte groups of a tap
+  const int cpt = (g.Cp + KC - 1) / KC;      // ring chunks of a tap
+  const int taps = g.k * g.k;
+  const int KT = ntiles * taps * cpt;
 
-  // A role: rows a_row + 32 i (i < 4), channels 8 * a_ch .. +7 of the chunk
-  const int a_row = tid / 8, a_ch = tid % 8;
-  long long a_off[4];  // element offset of the row's input pixel at tap (0, 0)
-  int a_iy[4], a_ix[4];
-  const int hw = g.oH * g.oW;
+  // ---- the weight ring: chunk (tile, tap, c) is groups 4c .. 4c+3 of the tap
+  int ld_tile = 0, ld_tap = 0, ld_c = 0, ld_stage = 0;
+  auto load_next = [&]() {
+    const uint32_t sb = base + g.ring_off + ld_stage * STAGE_BYTES;
+    const int n0 = (tile0 + ld_tile) * BN;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int p = p0 + a_row + 32 * i;
-    const bool live = p < g.M;
-    const int pp = live ? p : 0;
-    const int n = pp / hw, r = pp - n * hw;
-    const int oy = r / g.oW, ox = r - oy * g.oW;
-    a_iy[i] = live ? oy * g.stride - g.pad : -(1 << 28);  // a dead row fails every bound
-    a_ix[i] = ox * g.stride - g.pad;
-    a_off[i] = ((long long)(n * g.H + a_iy[i]) * g.W + a_ix[i]) * g.C;
-  }
-  // B role: output channels b_row + 64 i (i < 2), 16 bytes at 16 * b_ch of the chunk
-  const int b_row = tid / 4, b_ch = tid % 4;
-  const int8_t* b_ptr[2];
-  bool b_live[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int co = n0 + b_row + 64 * i;
-    b_live[i] = co < g.Co;
-    b_ptr[i] = w + (size_t)(b_live[i] ? co : 0) * g.Kp;
-  }
-
-  uint4 ra[4], rb[2];
-  auto load = [&](int kt) {
-    const int tap = kt / g.cchunks;
-    const int c0 = (kt - tap * g.cchunks) * BK;
-    const int dy = tap / g.k, dx = tap - dy * g.k;
-    const int c = c0 + 8 * a_ch;
-    const long long tap_off = (long long)(dy * g.W + dx) * g.C;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int iy = a_iy[i] + dy, ix = a_ix[i] + dx;
-      const bool ok = (unsigned)iy < (unsigned)g.H && (unsigned)ix < (unsigned)g.W;
-      ra[i] = load8<VEC>(x, a_off[i] + tap_off, c, g.C, ok);
+    for (int i = 0; i < B_COPIES; ++i) {
+      const int j = tid + i * THREADS;
+      const int q = j / BN, row = j % BN;
+      const int gq = 4 * ld_c + q, co = n0 + row;
+      const bool ok = gq < gpt && co < g.Co;
+      const int8_t* src = w + ((size_t)(ld_tap * gpt + gq) * g.Co + co) * 16;
+      sm90::cp_async_16(sb + (q * BN + row) * 16, ok ? src : w, ok ? 16 : 0);
     }
-    const int cb = c0 + 16 * b_ch;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      rb[i] = make_uint4(0u, 0u, 0u, 0u);
-      if (b_live[i] && cb < g.Cp)
-        rb[i] = __ldg(reinterpret_cast<const uint4*>(b_ptr[i] + tap * g.Cp + cb));
+    if (++ld_c == cpt) {
+      ld_c = 0;
+      if (++ld_tap == taps) {
+        ld_tap = 0;
+        ++ld_tile;
+      }
     }
+    ld_stage = ld_stage == STAGES - 1 ? 0 : ld_stage + 1;
   };
-  auto store = [&](int stage) {
-    uint8_t* as = smem + stage * STAGE;
-    uint8_t* bs = as + A_TILE;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      *reinterpret_cast<uint2*>(as + (a_row + 32 * i) * LDS + 8 * a_ch) = quant8(ra[i], sx);
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-      *reinterpret_cast<uint4*>(bs + (b_row + 64 * i) * LDS + 16 * b_ch) = rb[i];
-  };
+  for (int s = 0; s < STAGES - 2; ++s) {  // in flight while the A tile is quantized
+    if (s < KT) load_next();
+    sm90::cp_async_commit();
+  }
 
-  int acc[2][8][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[mi][ni][j] = 0;
-
-  const int wm = warp % 4, wn = warp / 4;
-  const int gq = lane / 4, tq = lane % 4;
-
-  load(0);
-  store(0);
+  // ---- the block's pixels: A slots and output rows
+  const int bx = blockIdx.x;
+  int n = 0, oy0 = 0, ox0 = 0;
+  const int patches = g.tiles_x * g.tiles_y;
+  if (g.k == 3) {
+    n = bx / patches;
+    const int r = bx - n * patches;
+    oy0 = (r / g.tiles_x) * 8 * WG_M;
+    ox0 = (r % g.tiles_x) * 8 * MT;
+  }
+  const int ohw = g.oH * g.oW;
+  for (int s = tid; s < g.a_slots; s += THREADS) {
+    int pix = -1;
+    if (g.k == 3) {
+      const int pp = g.plane_h * g.plane_w;
+      const int plane = s / pp, r = s - plane * pp;
+      const int py = r / g.plane_w, px = r - py * g.plane_w;
+      const int iy = oy0 * g.stride - g.pad + py * g.stride + plane / g.stride;
+      const int ix = ox0 * g.stride - g.pad + px * g.stride + plane % g.stride;
+      if ((unsigned)iy < (unsigned)g.H && (unsigned)ix < (unsigned)g.W)
+        pix = (n * g.H + iy) * g.W + ix;
+    } else {
+      const int p = bx * BM + s;
+      if (p < g.M) {
+        const int nn = p / ohw, r = p - nn * ohw;
+        const int oy = r / g.oW, ox = r - oy * g.oW;
+        pix = (nn * g.H + oy * g.stride) * g.W + ox * g.stride;
+      }
+    }
+    in_tab[s] = pix;
+  }
+  for (int r = tid; r < BM; r += THREADS) {
+    int pix = -1;
+    if (g.k == 3) {  // m64 tile r / 64 is sub-patch (m / MT, m % MT)
+      const int m = r / 64, rr = r % 64;
+      const int oy = oy0 + (m / MT) * 8 + rr / 8, ox = ox0 + (m % MT) * 8 + rr % 8;
+      if (oy < g.oH && ox < g.oW) pix = (n * g.oH + oy) * g.oW + ox;
+    } else if (bx * BM + r < g.M) {
+      pix = bx * BM + r;
+    }
+    out_tab[r] = pix;
+  }
   __syncthreads();
-  for (int kt = 0; kt < g.KT; ++kt) {
-    const bool more = kt + 1 < g.KT;
-    if (more) load(kt + 1);  // in flight while the tensor cores work on chunk kt
-    const uint8_t* as = smem + (kt & 1) * STAGE;
-    const uint8_t* bs = as + A_TILE;
+
+  // ---- quantize the A tile once
+  const float sx = *s_x_ptr;
+  if (sx >= RCP_LO && sx <= RCP_HI)
+    quantize_tile<false>(x, sx, __frcp_rn(sx), g, vec, in_tab, gbase);
+  else
+    quantize_tile<true>(x, sx, 0.f, g, vec, in_tab, gbase);
+  sm90::fence_proxy_async();  // the A tile's generic stores, visible to wgmma
+
+  // ---- products
+  const uint32_t a_lbo = g.a_slots * 16;
+  const uint32_t a_sbo = g.k == 3 ? g.plane_w * 16 : 128;
+  const int lane = tid % 32;
+  uint32_t a_row0[MT];  // each m64 tile's A start at tap (0, 0)
+  int out0[MT], out1[MT];
 #pragma unroll
-    for (int ks = 0; ks < BK / 32; ++ks) {
-      const int kb = ks * 32 + 4 * tq;
-      uint32_t a[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const uint8_t* r = as + (wm * 32 + mi * 16 + gq) * LDS + kb;
-        a[mi][0] = lds32(r);
-        a[mi][1] = lds32(r + 8 * LDS);
-        a[mi][2] = lds32(r + 16);
-        a[mi][3] = lds32(r + 8 * LDS + 16);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 8; ++ni) {
-        const uint8_t* r = bs + (wn * 64 + ni * 8 + gq) * LDS + kb;
-        const uint32_t b0 = lds32(r), b1 = lds32(r + 16);
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) mma_s8(acc[mi][ni], a[mi], b0, b1);
-      }
-    }
-    if (more) store((kt + 1) & 1);  // the stage chunk kt-1 read, free since the last barrier
-    __syncthreads();
+  for (int mt = 0; mt < MT; ++mt) {
+    const int m = wm * MT + mt;
+    a_row0[mt] = base + (g.k == 3 ? (m / MT) * 8 * g.plane_w + (m % MT) * 8 : m * 64) * 16;
+    const int r0 = m * 64 + ((tid % 128) / 32) * 16 + lane / 4;
+    out0[mt] = out_tab[r0];
+    out1[mt] = out_tab[r0 + 8];
   }
 
-  // epilogue: c0, c1 at (row gq, columns 2 tq, 2 tq + 1), c2, c3 eight rows below
+  int acc[MT][64];
 #pragma unroll
-  for (int ni = 0; ni < 8; ++ni) {
-    const int co = n0 + wn * 64 + ni * 8 + 2 * tq;
-    if (co >= g.Co) continue;
-    const float sc0 = __fmul_rn(sx, w_scale[co]), sc1 = __fmul_rn(sx, w_scale[co + 1]);
-    float bias0 = 0.f, bias1 = 0.f;
-    if (bias != nullptr) {
-      bias0 = __bfloat162float(bias[co]);
-      bias1 = __bfloat162float(bias[co + 1]);
-    }
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int p = p0 + wm * 32 + mi * 16 + gq + 8 * h;
-        if (p >= g.M) continue;
-        __nv_bfloat16 v0 = __float2bfloat16_rn(__fmul_rn(__int2float_rn(acc[mi][ni][2 * h]), sc0));
-        __nv_bfloat16 v1 =
-            __float2bfloat16_rn(__fmul_rn(__int2float_rn(acc[mi][ni][2 * h + 1]), sc1));
-        if (bias != nullptr) {
-          v0 = __float2bfloat16_rn(__fadd_rn(__bfloat162float(v0), bias0));
-          v1 = __float2bfloat16_rn(__fadd_rn(__bfloat162float(v1), bias1));
+    for (int i = 0; i < 64; ++i) acc[mt][i] = 0;
+  int stage = 0, kt = 0;
+  for (int tile = 0; tile < ntiles; ++tile) {
+    for (int tap = 0; tap < taps; ++tap) {
+      const uint32_t a_tap = tap_slots(tap, g) * 16;  // this tap's A offset
+      for (int c = 0; c < cpt; ++c, ++kt) {
+        if (tap == 0 && c == 0) {  // the tile's s_x * w_scale and bias, for its epilogue
+          float* const ep = reinterpret_cast<float*>(gbase + g.ep_off) + (tile & 1) * 2 * BN;
+          for (int j = tid; j < BN; j += THREADS) {
+            const int co = (tile0 + tile) * BN + j;
+            ep[j] = co < g.Co ? __fmul_rn(sx, w_scale[co]) : 0.f;
+            ep[BN + j] = co < g.Co && bias != nullptr ? __bfloat162float(bias[co]) : 0.f;
+          }
         }
-        __nv_bfloat162 pair;
-        pair.x = v0;
-        pair.y = v1;
-        *reinterpret_cast<__nv_bfloat162*>(y + (size_t)p * g.Co + co) = pair;
+        sm90::cp_async_wait<STAGES - 3>();  // this thread's copies of chunk kt have landed
+        sm90::fence_proxy_async();
+        // every thread's copies of chunk kt are visible, and both warpgroups
+        // have waited for their wgmma of chunk kt-2, whose stage the next load reuses
+        __syncthreads();
+        if (kt + STAGES - 2 < KT) load_next();
+        sm90::cp_async_commit();
+        const uint32_t sb = base + g.ring_off + stage * STAGE_BYTES + wn * WN * 16;
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int st = 0; st < 2; ++st) {  // k32 step 2c + st of the tap: 2 groups further
+          const uint32_t ka = a_tap + 2 * (2 * c + st) * a_lbo;
+          const uint64_t db = sm90::desc_noswz(sb + 2 * st * BN * 16, BN * 16, 128);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+            sm90::wgmma_m64n128k32_s8_ss(acc[mt], sm90::desc_noswz(a_row0[mt] + ka, a_lbo, a_sbo),
+                                         db, (tap | c | st) != 0);
+        }
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<1>();  // chunk kt's product may run on; chunk kt-1's is done
+        stage = stage == STAGES - 1 ? 0 : stage + 1;
+      }
+    }
+    // the tile's accumulators to y
+    sm90::wgmma_wait<0>();
+    const float* const ep =
+        reinterpret_cast<const float*>(gbase + g.ep_off) + (tile & 1) * 2 * BN;
+    const int col0 = wn * WN + 2 * (lane % 4);
+    const int co_base = (tile0 + tile) * BN + col0;
+#pragma unroll
+    for (int i = 0; i < WN / 8; ++i) {
+      const int co = co_base + 8 * i;
+      if (co >= g.Co) continue;
+      const float2 sc = *reinterpret_cast<const float2*>(ep + col0 + 8 * i);
+      const float2 bs = *reinterpret_cast<const float2*>(ep + BN + col0 + 8 * i);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int pix = hh ? out1[mt] : out0[mt];
+          if (pix < 0) continue;
+          __nv_bfloat16 v0 =
+              __float2bfloat16_rn(__fmul_rn(__int2float_rn(acc[mt][4 * i + 2 * hh]), sc.x));
+          __nv_bfloat16 v1 =
+              __float2bfloat16_rn(__fmul_rn(__int2float_rn(acc[mt][4 * i + 2 * hh + 1]), sc.y));
+          if (bias != nullptr) {
+            v0 = __float2bfloat16_rn(__fadd_rn(__bfloat162float(v0), bs.x));
+            v1 = __float2bfloat16_rn(__fadd_rn(__bfloat162float(v1), bs.y));
+          }
+          __nv_bfloat162 pair;
+          pair.x = v0;
+          pair.y = v1;
+          *reinterpret_cast<__nv_bfloat162*>(y + (size_t)pix * g.Co + co) = pair;
+        }
       }
     }
   }
+  sm90::cp_async_wait<0>();
+}
+
+template <int WG_M, int MT>
+cudaError_t allow_smem() {
+  static const cudaError_t err = cudaFuncSetAttribute(
+      conv_int8_kernel<WG_M, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+  return err;
+}
+
+// The kernel of a layout: (wg_m, m_tiles) in {(2, 1), (1, 1), (2, 2)}, or null.
+using KernelFn = void (*)(const __nv_bfloat16*, const int8_t*, const float*, const float*,
+                          const __nv_bfloat16*, __nv_bfloat16*, Geom, int);
+KernelFn kernel_of(int wg_m, int m_tiles, cudaError_t* err) {
+  if (wg_m == 2 && m_tiles == 1) {
+    *err = allow_smem<2, 1>();
+    return conv_int8_kernel<2, 1>;
+  }
+  if (wg_m == 1 && m_tiles == 1) {
+    *err = allow_smem<1, 1>();
+    return conv_int8_kernel<1, 1>;
+  }
+  if (wg_m == 2 && m_tiles == 2) {
+    *err = allow_smem<2, 2>();
+    return conv_int8_kernel<2, 2>;
+  }
+  *err = cudaErrorInvalidValue;
+  return nullptr;
 }
 
 }  // namespace
 
-// Blocks of the kernel that fit one SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
-// or minus the CUDA error.
-extern "C" int conv_int8_blocks_per_sm() {
+// Blocks of the kernel with `wg_m` warpgroups along M of `m_tiles` m64 tiles
+// each and `smem_bytes` of dynamic shared memory that fit one SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or minus the CUDA error.
+extern "C" int conv_int8_blocks_per_sm(int wg_m, int m_tiles, int smem_bytes) {
+  cudaError_t err;
+  const KernelFn fn = kernel_of(wg_m, m_tiles, &err);
   int blocks = 0;
-  const cudaError_t err =
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, conv_int8_kernel<8>, THREADS, 0);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, THREADS, smem_bytes);
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
-// bias may be null.  Returns the launch's CUDA error (0 on success).
+// bias may be null.  The plan (ops/conv_int8.py::k5_plan): wg_m and m_tiles
+// (the layout: (2, 1), (1, 1) or (2, 2)), tiles_per_block (Co tiles of
+// 256 / wg_m channels a block walks), plane_h and plane_w (3x3: the A tile's
+// parity planes), a_slots (pixel slots of the A tile), the grid (grid_m
+// pixel blocks x grid_n Co splits) and smem_bytes.  Returns the launch's
+// CUDA error (0 on success).
 extern "C" int conv_int8_launch(const void* x, const void* w, const void* w_scale,
                                 const void* s_x, const void* bias, void* y, int N, int H, int W,
-                                int C, int Co, int k, int stride, int oH, int oW, void* stream) {
+                                int C, int Co, int k, int stride, int wg_m, int m_tiles,
+                                int tiles_per_block, int plane_h, int plane_w, int a_slots,
+                                int grid_m, int grid_n, int smem_bytes, void* stream) {
+  cudaError_t err;
+  const KernelFn fn = kernel_of(wg_m, m_tiles, &err);
+  if (err != cudaSuccess) return static_cast<int>(err);
   Geom g;
   g.H = H;
   g.W = W;
   g.C = C;
-  g.Cp = (C + 15) / 16 * 16;
+  g.Cp = (C + 31) / 32 * 32;
   g.Co = Co;
   g.k = k;
   g.stride = stride;
   g.pad = (k - 1) / 2;
-  g.oH = oH;
-  g.oW = oW;
-  g.M = N * oH * oW;
-  g.Kp = k * k * g.Cp;
-  g.cchunks = (C + BK - 1) / BK;
-  g.KT = k * k * g.cchunks;
-  const dim3 grid((g.M + BM - 1) / BM, (Co + BN - 1) / BN);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* xb = static_cast<const __nv_bfloat16*>(x);
-  const auto* wb = static_cast<const int8_t*>(w);
-  const auto* ws = static_cast<const float*>(w_scale);
-  const auto* sx = static_cast<const float*>(s_x);
-  const auto* bb = static_cast<const __nv_bfloat16*>(bias);
-  auto* yb = static_cast<__nv_bfloat16*>(y);
-  if (C % 8 == 0)
-    conv_int8_kernel<8><<<grid, THREADS, 0, s>>>(xb, wb, ws, sx, bb, yb, g);
-  else if (C % 2 == 0)
-    conv_int8_kernel<2><<<grid, THREADS, 0, s>>>(xb, wb, ws, sx, bb, yb, g);
-  else
-    conv_int8_kernel<1><<<grid, THREADS, 0, s>>>(xb, wb, ws, sx, bb, yb, g);
+  g.oH = (H - 1) / stride + 1;
+  g.oW = (W - 1) / stride + 1;
+  g.M = N * g.oH * g.oW;
+  const int bn = WN * (2 / wg_m), bm = 64 * wg_m * m_tiles;
+  g.co_tiles = (Co + bn - 1) / bn;
+  g.tiles_per_block = tiles_per_block;
+  g.plane_h = plane_h;
+  g.plane_w = plane_w;
+  g.a_slots = a_slots;
+  g.tiles_x = (g.oW + 8 * m_tiles - 1) / (8 * m_tiles);
+  g.tiles_y = (g.oH + 8 * wg_m - 1) / (8 * wg_m);
+  g.ring_off = (a_slots * g.Cp + 127) / 128 * 128;
+  g.tab_off = g.ring_off + STAGES * bn * KC;
+  g.ep_off = g.tab_off + (4 * (a_slots + bm) + 15) / 16 * 16;
+  int need = g.ep_off + 16 * bn + 128;  // + base alignment
+  if (g.Cp % KC) need = max(need, g.ring_off + 2 * a_slots * 16 + 128);  // the phantom step
+  if (smem_bytes < need || smem_bytes > SMEM_MAX || grid_n * tiles_per_block < g.co_tiles)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int vec = C % 8 == 0 ? 8 : C % 2 == 0 ? 2 : 1;
+  fn<<<dim3(grid_m, grid_n), THREADS, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w),
+      static_cast<const float*>(w_scale), static_cast<const float*>(s_x),
+      static_cast<const __nv_bfloat16*>(bias), static_cast<__nv_bfloat16*>(y), g, vec);
   return static_cast<int>(cudaGetLastError());
 }

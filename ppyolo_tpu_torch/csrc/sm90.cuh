@@ -1,10 +1,11 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: cp.async with
-// zero-fill, the 128-byte shared-memory swizzle, wgmma descriptors and the
-// wgmma fence / commit / wait, the wgmma shapes the kernels issue, named
-// barriers, mma.sync and ldmatrix.
+// zero-fill, the 128-byte shared-memory swizzle, wgmma descriptors (swizzled
+// and not) and the wgmma fence / commit / wait, the wgmma shapes the kernels
+// issue (bf16 and s8), named barriers, mma.sync and ldmatrix.
 //
-// Operand layouts.  Both wgmma operands that come from shared memory are
-// K-major in the 128-byte swizzle: an "atom" is 8 rows of 64 bf16 (128
+// Operand layouts.  The bf16 kernels' wgmma operands from shared memory are
+// K-major in the 128-byte swizzle (K5's int8 operands are K-major without
+// swizzle: desc_noswz): an "atom" is 8 rows of 64 bf16 (128
 // bytes), row r's 16-byte chunk j is stored at r * 128 + ((j ^ (r % 8)) * 16),
 // and atoms follow each other along M (or N) every 1024 bytes.  An operand
 // starts on a 1024-byte boundary; its k16 step s inside the 64-wide atom
@@ -58,6 +59,15 @@ __device__ __forceinline__ uint32_t swz128(int row, int chunk) {
 __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) |
          (1ull << 62);
+}
+
+// wgmma descriptor of a K-major operand without swizzle (layout type 0): a
+// core matrix is 8 rows of 16 bytes stored as 128 contiguous bytes; `lbo`
+// bytes from a core matrix to the next along K, `sbo` bytes from one to the
+// next along M (or N).  The start address need only be 16-byte aligned.
+__device__ __forceinline__ uint64_t desc_noswz(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32);
 }
 
 // Barrier `id` (1..15) among `threads` threads (a multiple of 32), leaving
@@ -114,6 +124,33 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(1));
+}
+
+// D[64 x 128] (+)= A[64 x 32] * B[32 x 128], s8 x s8 -> s32, A and B from
+// shared memory (descriptors), both K-major (8-bit wgmma takes no other);
+// D is overwritten where scale_d is 0.  D's layout as in wgmma_m64n128k16_ss.
+__device__ __forceinline__ void wgmma_m64n128k32_s8_ss(int (&d)[64], uint64_t da, uint64_t db,
+                                                       int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 // D[64 x 32] += A[64 x 16] * B[16 x 32], A from registers (the mma.sync

@@ -9,6 +9,8 @@ leaves become the identity transform (weight 1, bias b', mean 0, var
 1-eps), so the same forward runs.  int8 rewrites ``<mod>.conv.weight`` to
 int8 and adds ``<mod>.conv.weight_scale`` (and, calibrated,
 ``<mod>.conv.act_scale``); ``match_int8_form`` gives a model that form.
+``int8_conv_shapes`` lists the shapes the int8 convs of a model see, and
+``int8_conv_class`` the class each one's time is reported under.
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.conv import match_int8_form, recording
+from ..ops.conv import ConvNormAct, match_int8_form, recording
 from ..ops.module import BN_EPS
 
 StateDict = Dict[str, torch.Tensor]
@@ -85,6 +87,46 @@ def quantize_params_int8(sd: StateDict, skip_prefixes=INT8_SKIP_PREFIXES,
         if act_scales and mod in act_scales:
             out[f"{mod}.conv.act_scale"] = torch.tensor(np.float32(act_scales[mod]))
     return out
+
+
+@torch.no_grad()
+def int8_conv_shapes(model: nn.Module, size: int, batch: int, probe: int = 32) -> list:
+    """[(C, H, W, Co, k, stride, convs)] of the convs ``quantize_params_int8``
+    quantizes in ``model`` (float weights, BN unfolded) served at size x
+    size, batch ``batch``, sorted: each conv's input read by a hook in one
+    forward of a probe x probe image on the model's device.  ``size`` must be
+    a multiple of ``probe``, itself a multiple of the model's stride 32, so
+    every map at ``size`` is size / probe times the probe's."""
+    if size % probe or probe % 32:
+        raise ValueError(f"size {size} is not a multiple of the probe {probe} (a multiple of 32)")
+    q = quantize_params_int8(model.state_dict())
+    mods = [m for n, m in model.named_modules()
+            if isinstance(m, ConvNormAct) and f"{n}.conv.weight_scale" in q]
+    found: Dict[tuple, int] = {}
+
+    def hook(m, inp):
+        _, c, h, w = inp[0].shape
+        key = (c, h * size // probe, w * size // probe, m.cout, m.ksize, m.stride)
+        found[key] = found.get(key, 0) + 1
+
+    hooks = [m.register_forward_pre_hook(hook) for m in mods]
+    p = next(model.parameters())
+    try:
+        model.outputs(torch.zeros(1, 3, probe, probe, dtype=p.dtype, device=p.device))
+    finally:
+        for h in hooks:
+            h.remove()
+    if sum(found.values()) != len(mods):
+        raise AssertionError(f"{len(mods)} int8 convs, {sum(found.values())} ran")
+    return [(*k, n) for k, n in sorted(found.items())]
+
+
+def int8_conv_class(k: int, c: int, stride: int) -> str:
+    """The class an int8 conv's time is reported under: 3x3 by stride, 1x1
+    by whether C % 8 == 0 (the CoordConv inputs have C = 2 mod 8)."""
+    if k == 3:
+        return f"3x3 s{stride}"
+    return "1x1 C%8=0" if c % 8 == 0 else "1x1 C=2 mod 8"
 
 
 @torch.no_grad()

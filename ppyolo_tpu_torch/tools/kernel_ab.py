@@ -2,13 +2,14 @@
 
 Both versions get the same inputs at the shapes their paths give them (K4:
 the probe's stage3_0 and stage4_0 convs, K2: a b8@608 batch, K1 and K3:
-ppyolo_2x's stage-5 DCNs at b8@608, 38x38/s2 and 19x19/s1; bf16), with
+ppyolo_2x's stage-5 DCNs at b8@608, 38x38/s2 and 19x19/s1; bf16; K5: the
+32 shapes of ppyolo_2x@608 b8's 65 int8 convs, a static scale), with
 their weights packed once, outside the timed window, in the layout each
 reads.  Each is held against the plain version first (max-abs error <= 2%
-of the plain output's max-abs; K3: dx, d_om and cols), then timed with CUDA
+of the plain output's max-abs; K3: dx, d_om and cols; K5 bit-equal), then timed with CUDA
 events over 20 warm launches in the order earlier, current, current,
-earlier; K1 and K3 inside a CUDA graph of the 20 launches (``graph_ms``),
-so that their wrappers' host work is not what is timed.  K3's earlier call
+earlier; K1, K3 and K5 inside a CUDA graph of the 20 launches
+(``graph_ms``), so that their wrappers' host work is not what is timed.  K3's earlier call
 zeroes its dx first (its first form added into dx).
 
 The earlier version is given as a directory of CUDA sources with the C
@@ -21,6 +22,10 @@ interface of the kernels that preceded each redesign:
       kw, stride, pad, stream), w [k2*C, outC] bf16
   dcn_bwd_launch(x, om, dm, dx, d_om, cols, is_f32, N, H, W, C, oH, oW, kh,
       kw, stride, pad, stream), dx zeroed by the caller
+  conv_int8_launch(x, w, w_scale, s_x, bias, y, N, H, W, C, Co, k, stride,
+      oH, oW, stream), w K-major [Co, k*k*Cp] int8 with each tap's channels
+      zero-padded to Cp = C rounded up to 16 (K5's first form, commit
+      ``76e2a95``: mma.sync, the activation quantized on load)
 
 e.g. an earlier commit's ``ppyolo_tpu_torch/csrc`` unpacked with
 ``git archive`` (the wmma K2/K4 before PR 4's commit, the first K1/K3 at
@@ -30,10 +35,11 @@ it).  K3 had two later forms, named by ``--dcn-bwd-form``: ``binned``
 ``sorted`` (a CUB radix sort of its dx entries) takes ``keys, vals, wts,
 keys_out, vals_out, temp, temp_bytes`` there, temp_bytes from its
 ``dcn_bwd_sort_bytes(N, H, W, oH, oW, k2)``.  ``--kernels`` picks which of
-the four to compare.  The earlier
+the five to compare (K5's rows also sum ms a batch, earlier and current,
+by class: 3x3 s1, 3x3 s2, 1x1 with C % 8 = 0, 1x1 with C = 2 mod 8).  The earlier
 sources are built with the same nvcc flags into ``build/kernels/earlier/``.
 
-Usage: python -m ppyolo_tpu_torch.tools.kernel_ab --earlier DIR [--kernels dcn_fwd,dcn_bwd]
+Usage: python -m ppyolo_tpu_torch.tools.kernel_ab --earlier DIR [--kernels dcn_fwd,conv_int8]
        [--dcn-bwd-form first|binned|sorted]
 """
 from __future__ import annotations
@@ -58,6 +64,7 @@ _EARLIER_ARGTYPES = {
     "conv_s2": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
     "fused_stem": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
     "dcn_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12 + [ctypes.c_void_p],
+    "conv_int8": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
 }
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _EARLIER_DCN_BWD = {   # K3's earlier C interfaces, by form
@@ -152,7 +159,7 @@ def main(argv=None) -> list:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--earlier", type=Path, required=True,
                     help="directory with the earlier sources of the kernels compared")
-    ap.add_argument("--kernels", default=",".join(_EARLIER_ARGTYPES),
+    ap.add_argument("--kernels", default="conv_s2,fused_stem,dcn_fwd,dcn_bwd",
                     help="comma-separated subset of " + ",".join(_EARLIER_ARGTYPES))
     ap.add_argument("--dcn-bwd-form", default="first", choices=sorted(_EARLIER_DCN_BWD),
                     help="the C interface of the earlier dcn_bwd.cu")
@@ -319,7 +326,66 @@ def ab_dcn_bwd(earlier, lib, gen, form: str = "first") -> list:
     return rows
 
 
-_AB = {"conv_s2": ab_conv_s2, "fused_stem": ab_fused_stem, "dcn_fwd": ab_dcn_fwd}
+def _earlier_int8_weight(wq: torch.Tensor) -> torch.Tensor:
+    """int8 OIHW -> the earlier K5's K-major [Co, k*k*Cp], Cp = C rounded up to 16."""
+    co, c, k, _ = wq.shape
+    cp = (c + 15) // 16 * 16
+    return torch.nn.functional.pad(wq.permute(0, 2, 3, 1), (0, cp - c)).reshape(
+        co, k * k * cp).contiguous()
+
+
+def ab_conv_int8(earlier, gen) -> list:
+    from configs import PPYOLO_2x_Config
+
+    from ..eval.optimize import int8_conv_class, int8_conv_shapes
+    from ..models import PPYOLO
+    from ..ops.conv_int8 import (dynamic_act_scale, pack_int8_weight, quantized_conv2d,
+                                 quantized_conv2d_plain)
+
+    dev, rows = torch.device("cuda"), []
+    by_class = {}
+    for c, h, w, co, k, stride, count in int8_conv_shapes(
+            PPYOLO.from_config(PPYOLO_2x_Config()).eval(), SIZE, BATCH):
+        x = (torch.randn(BATCH, c, h, w, generator=gen) * 1.5).to(dev, torch.bfloat16)
+        x = x.contiguous(memory_format=torch.channels_last)
+        wq = torch.randint(-127, 128, (co, c, k, k), generator=gen, dtype=torch.int8).to(dev)
+        ws = (torch.rand(co, generator=gen) * 1e-3 + 1e-4).to(dev)
+        s_x = dynamic_act_scale(x) * 0.6      # static; clips the largest activations
+        packed, packed_earlier = pack_int8_weight(wq), _earlier_int8_weight(wq)
+        oh, ow = (h - 1) // stride + 1, (w - 1) // stride + 1
+        y = torch.empty(BATCH, co, oh, ow, dtype=x.dtype, device=dev,
+                        memory_format=torch.channels_last)
+        ptrs = [t.data_ptr() for t in (x, packed_earlier, ws, s_x)]
+        run_e = lambda: earlier(*ptrs, 0, y.data_ptr(), BATCH, h, w, c, co, k, stride, oh, ow,
+                                _stream())
+        kw = dict(stride=stride, padding=(k - 1) // 2, act_scale=s_x)
+        run_c = lambda: quantized_conv2d(x, wq, ws, packed=packed, **kw)
+        with torch.no_grad():
+            want = quantized_conv2d_plain(x, wq, ws, **kw)
+            if run_e() != 0:
+                raise RuntimeError("earlier conv_int8 launch failed")
+            for side, got in (("earlier", y), ("current", run_c())):
+                if not torch.equal(got, want):
+                    raise AssertionError(f"{side} conv_int8 {(c, h, w, co, k, stride)}: not "
+                                         f"bit-equal to the plain version")
+            row = ab(f"conv_int8 {[BATCH, h, w, c]} -> {co} k{k} s{stride}", run_e, run_c,
+                     graph_ms)
+        acc = by_class.setdefault(int8_conv_class(k, c, stride),
+                                  {"convs": 0, "earlier_ms": 0.0, "current_ms": 0.0})
+        acc["convs"] += count
+        acc["earlier_ms"] += count * sum(row["earlier_ms"]) / 2
+        acc["current_ms"] += count * sum(row["current_ms"]) / 2
+        rows.append({**row, "convs": count, "bit_equal": True})
+    total = {"convs": sum(v["convs"] for v in by_class.values()),
+             "earlier_ms": sum(v["earlier_ms"] for v in by_class.values()),
+             "current_ms": sum(v["current_ms"] for v in by_class.values())}
+    rows.append({"kernel": "conv_int8 per b8@608 batch", "by_class": by_class, **total,
+                 "speedup": total["earlier_ms"] / total["current_ms"]})
+    return rows
+
+
+_AB = {"conv_s2": ab_conv_s2, "fused_stem": ab_fused_stem, "dcn_fwd": ab_dcn_fwd,
+       "conv_int8": ab_conv_int8}
 
 
 if __name__ == "__main__":

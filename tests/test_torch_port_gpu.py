@@ -746,19 +746,26 @@ def _int8_conv_inputs(seed, n, h, w, c, co, k, dev):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("with_bias", [True, False])
 @pytest.mark.parametrize("static", [False, True])
 @pytest.mark.parametrize("shape", [(2, 9, 10, 32, 24, 1, 1), (2, 9, 10, 32, 24, 1, 2),
                                    (2, 11, 7, 130, 64, 1, 1), (1, 19, 19, 258, 128, 1, 1),
                                    (2, 10, 10, 514, 256, 1, 1), (1, 13, 13, 2050, 512, 1, 1),
                                    (2, 16, 16, 64, 64, 3, 1), (2, 38, 38, 128, 128, 3, 2),
                                    (1, 19, 19, 136, 200, 3, 1), (1, 7, 9, 45, 18, 3, 2),
-                                   (8, 76, 76, 256, 256, 3, 2)])
-def test_int8_conv_kernel_is_bitwise_plain(shape, static):
+                                   (8, 76, 76, 256, 256, 3, 2), (2, 45, 38, 96, 1024, 3, 1),
+                                   (8, 19, 19, 514, 1024, 3, 1), (8, 19, 19, 512, 2048, 1, 1),
+                                   (8, 19, 19, 2050, 512, 1, 1), (2, 76, 45, 130, 200, 3, 1),
+                                   (1, 38, 19, 258, 512, 3, 2), (8, 38, 38, 1282, 256, 1, 1)])
+def test_int8_conv_kernel_is_bitwise_plain(shape, static, with_bias):
     """K5 bit-equal to ``quantized_conv2d_plain`` (the exact int8 sum, the
-    JAX dequant order) at the edges of its 128 x 128 tile and 64-byte K
-    chunk: C tails 130/258/514/2050 (C = 2 mod 8: 4-byte loads), 45 (odd:
-    2-byte loads), 136 (8 mod 64), ragged pixel and Co tails (Co 18, 200),
-    stride 2 for 1x1 and 3x3, with a bias, dynamic and static scales."""
+    JAX dequant order) at the edges of its tiles: H and W past the 16 x 8
+    or 8 x 8 patch (19, 38, 45, 76), halos at every image border, C tails
+    130/258/514/1282/2050 (C = 2 mod 8: 4-byte loads, an odd number of k32
+    steps), 45 (odd: 2-byte loads), 136, ragged pixel and Co tails (Co 18,
+    200), Co past one 128 or 256 column block (1024), the Co split the plan
+    picks at M = 2888 (19x19, b8), both warpgroup layouts, stride 2 for 1x1
+    and 3x3, with and without a bias, dynamic and static scales."""
     from ppyolo_tpu_torch.ops.conv_int8 import (dynamic_act_scale, quantized_conv2d,
                                                 quantized_conv2d_plain)
 
@@ -766,7 +773,8 @@ def test_int8_conv_kernel_is_bitwise_plain(shape, static):
     n, h, w, c, co, k, stride = shape
     x, wq, ws, bias = _int8_conv_inputs(sum(shape), n, h, w, c, co, k, dev)
     act = (dynamic_act_scale(x) * 0.6) if static else None     # static: clips the largest
-    kw = dict(stride=stride, padding=(k - 1) // 2, bias=bias, act_scale=act)
+    kw = dict(stride=stride, padding=(k - 1) // 2, bias=bias if with_bias else None,
+              act_scale=act)
     before = quantized_conv2d.launches
     with torch.no_grad():
         got = quantized_conv2d(x, wq, ws, **kw)
@@ -777,6 +785,36 @@ def test_int8_conv_kernel_is_bitwise_plain(shape, static):
     assert got.is_contiguous(memory_format=torch.channels_last)
     assert torch.equal(got, want), float((got.float() - want.float()).abs().max())
     assert got.abs().max() > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scale", [1e-6 / 127, 0.02, 1e-4, 7 * 2.0 ** -6, 1e-25])
+def test_int8_conv_kernel_quantizes_every_bf16_as_quantize_act(scale):
+    """Every finite bf16 bit pattern (65,280; NaN and Inf read as 0) through
+    K5 as a 1x1 conv with an identity weight: y = bf16(q * s_x), and q ->
+    y is one to one, so y equal to ``quantize_act``'s q dequantized means
+    the same int8 for every pattern.  Scales: the smallest dynamic scale,
+    a typical one, one that clips most of them, and 7 * 2^-6, whose inexact
+    reciprocal alone rounds 6 exact halves the wrong way (all four on K5's
+    reciprocal-and-FMA quotient), and one below 2^-64 (its true division)."""
+    from ppyolo_tpu_torch.ops.conv_int8 import quantize_act, quantized_conv2d
+
+    dev = _cuda_or_skip()
+    bits = torch.arange(65536, dtype=torch.int32).to(torch.int16)
+    x = bits.view(torch.bfloat16).clone()
+    x[~torch.isfinite(x.float())] = 0
+    x = x.view(1, 64, 64, 16).to(dev).permute(0, 3, 1, 2)      # channels_last, C = 16
+    wq = torch.eye(16, dtype=torch.int8, device=dev).view(16, 16, 1, 1)
+    ws = torch.ones(16, device=dev)
+    s_x = torch.tensor(scale, dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        got = quantized_conv2d(x, wq, ws, stride=1, padding=0, act_scale=s_x)
+    q = quantize_act(x, s_x)
+    want = (q.float() * s_x).to(torch.bfloat16)
+    levels = (torch.arange(-127, 128, device=dev).float() * s_x).to(torch.bfloat16)
+    assert levels.unique().numel() == 255                       # q -> y is one to one
+    assert torch.equal(got, want), int((got != want).sum())
+    assert q.min() == -127 and q.max() == 127                   # the clip is exercised
 
 
 @pytest.mark.gpu

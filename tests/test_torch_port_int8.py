@@ -222,8 +222,8 @@ def test_quantized_conv2d_zero_maps_to_zero_and_checks_shapes():
 def test_pack_int8_weight_layout():
     wq = torch.randint(-127, 128, (6, 130, 3, 3), dtype=torch.int8)
     p = pack_int8_weight(wq)
-    assert p.shape == (6, 9 * 144) and p.dtype == torch.int8 and p.is_contiguous()
-    taps = p.view(6, 9, 144)
+    assert p.shape == (9 * 160 // 16, 6, 16) and p.dtype == torch.int8 and p.is_contiguous()
+    taps = p.permute(1, 0, 2).reshape(6, 9, 160)    # K-major rows: tap * Cp + c
     assert torch.equal(taps[:, :, :130], wq.permute(0, 2, 3, 1).reshape(6, 9, 130))
     assert not taps[:, :, 130:].any()
 
