@@ -30,9 +30,14 @@ Phases, one JSON line each; any failure exits non-zero:
                cuDNN's bf16 ``F.conv2d`` of the shape (``library_ms``) and
                ``torch._int_mm`` on the 1x1s it takes, in total and by
                class (3x3 s1, 3x3 s2, 1x1 with C % 8 = 0, 1x1 with C = 2
-               mod 8), each shape with its ``k5_plan`` and blocks per SM;
-               K6 (the greedy NMS keep) at b8, k = 500 bit-equal to
-               the plain fixpoint; bounds at 1,979 TOP/s int8.
+               mod 8), each shape with its ``k5_plan`` and blocks per SM,
+               then at shapes no config serves (C past a resident A tile,
+               so streamed; an odd Co); K6 (the greedy NMS keep, from the
+               candidates' boxes) at b8 with k = 500 and 1500, bit-equal to
+               its plain version (the eager suppress matrix and the
+               fixpoint), timed beside it and, at k = 500, beside its first
+               form with the eager chain that fed it (``tools/kernel_ab``);
+               bounds at 1,979 TOP/s int8 (K5) and 67 TFLOP/s fp32 (K6).
                Weights are packed once, outside the timed window.  K1 and
                K3 are timed inside a CUDA graph of 20 calls
                (``kernel_ab.graph_ms``: their wrappers' host work outlasts
@@ -79,13 +84,16 @@ Phases, one JSON line each; any failure exits non-zero:
                65 launches a batch (counted, and in a trace); img/s in int8,
                bf16, bf16, int8 windows, device ms and idle share of each;
                graphed bit-equal to eager; ``calibrate`` on one batch pins 65
-               fp32 act scales and sets the graph aside, the next batch
+               fp32 act scales and releases the graph, the next batch
                captures anew, bit-equal to eager again, static serving timed;
                the card's int8 head maps within 0.2 (relative L2) of its bf16
                maps (identity BN, 2 x 160 px; twice the CPU test's bound).
 6d. multiclass -- the same int8 model with ``nms_type='multiclass_nms'``:
                K6 once a batch beside K1, K2 and K5, graphed bit-equal to
-               eager, img/s and device ms.
+               eager, img/s and device ms; the NMS of a served batch alone
+               (on the decode's outputs): device ms split into K6 and the
+               rest, its ms in a CUDA graph, and no op on a [B, k, k]
+               tensor.
 6e. serving_entries -- ``entry.demo`` at int8 on 16 synthetic jpgs (drawn
                images, fps, device ms) and ``entry.test_dev`` at int8 on the
                same images (the submission json written and parsed), through
@@ -235,11 +243,20 @@ INT8_CONVS, INT8_CLASSES = 65, 28  # int8 convs of ppyolo_2x, and their (k, Cin,
 INT8_BF16_GAP, INT8_GAP_FACTOR = 0.1, 2.0
 INT8_WINDOW_BATCHES = 20         # timed batches per serving window (int8, bf16, bf16, int8)
 MC_BATCHES = 6                   # multiclass-NMS batches after one warm-up
+# K5 at shapes no config serves, b8: C past a resident A tile (the
+# streamed layout: a 1x1 with C 4096 and a 3x3 with C 2048 at 19x19, a 3x3
+# s2 with C 1024 at 38x38) and an odd Co; (C, H, W, Co, k, stride)
+K5_EXTRA_SHAPES = ((4096, 19, 19, 512, 1, 1), (2048, 19, 19, 512, 3, 1),
+                   (1024, 38, 38, 256, 3, 2), (258, 38, 38, 255, 3, 1))
 NMS_B, NMS_K = BATCH, 500        # K6's check: b8, k = nms_top_k
+NMS_K_WIDE = 1500                # and past its first form's cap of 1024
 DEMO_IMAGES = 16                 # synthetic jpgs through entry.demo and entry.test_dev
 # the path whose run gives each kernel's ``launches``
 MAIN_PATH = {"dcn_fwd": "serving", "fused_stem": "serving", "dcn_bwd": "training",
              "conv_s2": "probe", "conv_int8": "int8_serving", "nms_keep": "multiclass"}
+
+
+SMI = ""   # nvidia-smi's name and power limit, set by phase_device
 
 
 def emit(obj) -> None:
@@ -338,7 +355,8 @@ def phase_device():
         raise RuntimeError("torch.cuda.is_available() is false: chip_smoke needs a CUDA card")
     if not (REPO / "ppyolo_tpu_torch" / "csrc").is_dir():
         raise RuntimeError(f"{REPO} is not a checkout of the repository")
-    smi = nvidia_smi()
+    global SMI
+    smi = SMI = nvidia_smi()
     name = torch.cuda.get_device_name(0)
     print(smi, flush=True)
     emit({"phase": "device", "name": name, "count": torch.cuda.device_count(),
@@ -358,8 +376,8 @@ def phase_build():
 def occupancy(name: str, *args: int) -> dict:
     """The bf16 kernel's blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor,
     exported by its library; ``args`` picks one of K3's two kernels, or K5's
-    warpgroup layout and shared memory) beside ptxas's registers and shared
-    memory."""
+    warpgroup layout, whether it streams C and its shared memory) beside
+    ptxas's registers and shared memory."""
     from ppyolo_tpu_torch.ops import _build
 
     fn = {"conv_s2": "conv_s2_bf16_blocks_per_sm", "fused_stem": "fused_stem_blocks_per_sm",
@@ -564,29 +582,83 @@ def int8_conv_shapes(cfg):
     return shapes, sum(s[-1] for s in shapes)
 
 
-def kernel_k5(gen, dev) -> dict:
-    """K5 at every int8 conv shape of ppyolo_2x@608 b8 (stride 1 and 2,
-    the CoordConv C = 2 mod 8 tails), bit-equal to ``quantized_conv2d_plain``
-    with the dynamic scale and with a static one that clips; timed inside a
-    CUDA graph of 20 calls (``kernel_ab.graph_ms``: at these sizes the
-    wrapper's host work would otherwise show; ``wrapper_ms`` is the eager
-    time) with the static scale (the kernel alone) and the dynamic one
-    (with the amax), beside the plain version, cuDNN's bf16 ``F.conv2d`` of
-    the same shape (``library_ms``) and, on the 1x1 stride-1 convs with
-    C % 8 == 0, ``torch._int_mm`` on the quantized activation, both graphed
-    too.  Per batch: each shape's time times the convs of that shape (65
-    launches), in total and by class (``int8_conv_class``); each shape's row
-    carries its plan (``k5_plan`` for the card's SMs), whose blocks per SM
-    must be those the occupancy API gives at the plan's shared memory."""
+def k5_shape(gen, dev, c, h, w, co, k, stride) -> dict:
+    """K5 at one conv shape, b8: bit-equal to ``quantized_conv2d_plain``
+    with the dynamic scale and with a static one that clips; timed in CUDA
+    graphs of 20 calls (static, dynamic), eagerly (``wrapper_ms``), beside
+    the plain version, cuDNN's bf16 ``F.conv2d`` of the shape
+    (``library_ms``) and, on a 1x1 stride-1 conv with C and Co % 8 == 0,
+    ``torch._int_mm`` on the quantized activation; with its plan, whose
+    blocks per SM must be the occupancy API's."""
     import torch
     import torch.nn.functional as F
-    from configs import PPYOLO_2x_Config
-    from ppyolo_tpu_torch.eval.optimize import int8_conv_class
-    from ppyolo_tpu_torch.ops import _build
     from ppyolo_tpu_torch.ops.conv_int8 import (dynamic_act_scale, k5_plan, pack_int8_weight,
                                                 quantize_act, quantized_conv2d,
                                                 quantized_conv2d_plain, sm_count)
     from ppyolo_tpu_torch.tools.kernel_ab import graph_ms
+
+    x = (torch.randn(BATCH, c, h, w, generator=gen) * 1.5).to(dev, torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last)
+    wq = torch.randint(-127, 128, (co, c, k, k), generator=gen, dtype=torch.int8).to(dev)
+    ws = (torch.rand(co, generator=gen) * 1e-3 + 1e-4).to(dev)
+    packed = pack_int8_weight(wq)   # once, outside every timed window
+    pad = (k - 1) // 2
+    static = dynamic_act_scale(x) * 0.6   # clips the largest activations
+    kw = dict(stride=stride, padding=pad)
+    with torch.no_grad():
+        for act in (None, static):
+            got = quantized_conv2d(x, wq, ws, act_scale=act, packed=packed, **kw)
+            want = quantized_conv2d_plain(x, wq, ws, act_scale=act, **kw)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"K5 {(c, h, w, co, k, stride)} act_scale {act is not None}: not "
+                    f"bit-equal, max abs {float((got.float() - want.float()).abs().max())}")
+        wb = (wq.float() * ws.view(-1, 1, 1, 1)).to(torch.bfloat16)
+        run_s = lambda: quantized_conv2d(x, wq, ws, act_scale=static, packed=packed, **kw)
+        ms, wms = graph_ms(run_s, 20), cuda_ms(run_s, 20)
+        msd = graph_ms(lambda: quantized_conv2d(x, wq, ws, packed=packed, **kw), 20)
+        pms = cuda_ms(lambda: quantized_conv2d_plain(x, wq, ws, act_scale=static, **kw), 3)
+        lms = graph_ms(lambda: F.conv2d(x, wb, **kw), 20)
+        imm = None
+        if k == 1 and stride == 1 and c % 8 == 0 and co % 8 == 0:
+            a = quantize_act(x, static).permute(0, 2, 3, 1).reshape(-1, c)
+            b = wq.view(co, c).t()
+            imm = graph_ms(lambda: torch._int_mm(a, b), 20)
+    oh, ow = (h - 1) // stride + 1, (w - 1) // stride + 1
+    ops = 2.0 * BATCH * oh * ow * co * k * k * c
+    nbytes = x.numel() * 2 + wq.numel() + co * 4 + BATCH * oh * ow * co * 2
+    b, by = bound_ms(ops, nbytes, PEAK_INT8_OPS)
+    plan = k5_plan(BATCH, h, w, c, co, k, stride, sm_count(dev))
+    bps = occupancy("conv_int8", plan.wg_m, plan.m_tiles, int(plan.streamed),
+                    plan.smem_bytes)["blocks_per_sm"]
+    if bps != plan.blocks_per_sm:
+        raise AssertionError(f"K5 {(c, h, w, co, k, stride)}: the plan counts "
+                             f"{plan.blocks_per_sm} blocks an SM, the occupancy API {bps}")
+    return {"x": [BATCH, h, w, c], "co": co, "k": k, "stride": stride,
+            "ms": ms, "ms_dynamic": msd, "wrapper_ms": wms, "plain_ms": pms, "library_ms": lms,
+            "int_mm_ms": imm, "bound_ms": b, "bound_by": by, "gop": ops / 1e9,
+            "mbytes": nbytes / 1e6, "tops": ops / ms / 1e9, "x_bound": ms / b,
+            "x_library": ms / lms, "max_abs_err": 0.0,
+            "t_ops_ms": ops / PEAK_INT8_OPS * 1e3, "t_bytes_ms": nbytes / PEAK_BYTES * 1e3,
+            "plan": {"wg_m": plan.wg_m, "m_tiles": plan.m_tiles, "grid": list(plan.grid),
+                     "tiles_per_block": plan.tiles_per_block, "c_chunk": plan.c_chunk,
+                     "streamed": plan.streamed, "smem_bytes": plan.smem_bytes,
+                     "quant_per_element": plan.quant_per_element, "blocks_per_sm": bps}}
+
+
+def kernel_k5(gen, dev) -> dict:
+    """K5 at every int8 conv shape of ppyolo_2x@608 b8 (stride 1 and 2,
+    the CoordConv C = 2 mod 8 tails), each through ``k5_shape`` (bit-equal
+    to the plain version, timed in CUDA graphs beside it, cuDNN bf16 and
+    ``torch._int_mm``).  Per batch: each shape's time times the convs of
+    that shape (65 launches), in total and by class (``int8_conv_class``).
+    Then K5_EXTRA_SHAPES, which no config serves: C past a resident A tile
+    (the streamed layout) and an odd Co, each beside cuDNN bf16."""
+    from configs import PPYOLO_2x_Config
+    from ppyolo_tpu_torch.eval.optimize import int8_conv_class
+    from ppyolo_tpu_torch.ops import _build
+    from ppyolo_tpu_torch.ops.conv_int8 import K5_MAX_C
 
     shapes, n_convs = int8_conv_shapes(PPYOLO_2x_Config())
     classes = {(k, c, co) for c, _, _, co, k, _, _ in shapes}
@@ -600,76 +672,40 @@ def kernel_k5(gen, dev) -> dict:
     by_class = {}
     t_ops = t_bytes = ops_batch = 0.0
     for c, h, w, co, k, stride, count in shapes:
-        x = (torch.randn(BATCH, c, h, w, generator=gen) * 1.5).to(dev, torch.bfloat16)
-        x = x.contiguous(memory_format=torch.channels_last)
-        wq = torch.randint(-127, 128, (co, c, k, k), generator=gen, dtype=torch.int8).to(dev)
-        ws = (torch.rand(co, generator=gen) * 1e-3 + 1e-4).to(dev)
-        packed = pack_int8_weight(wq)   # once, outside every timed window
-        pad = (k - 1) // 2
-        static = dynamic_act_scale(x) * 0.6   # clips the largest activations
-        kw = dict(stride=stride, padding=pad)
-        with torch.no_grad():
-            for act in (None, static):
-                got = quantized_conv2d(x, wq, ws, act_scale=act, packed=packed, **kw)
-                want = quantized_conv2d_plain(x, wq, ws, act_scale=act, **kw)
-                torch.cuda.synchronize()
-                if not torch.equal(got, want):
-                    raise AssertionError(
-                        f"K5 {(c, h, w, co, k, stride)} act_scale {act is not None}: not "
-                        f"bit-equal, max abs {float((got.float() - want.float()).abs().max())}")
-            wb = (wq.float() * ws.view(-1, 1, 1, 1)).to(torch.bfloat16)
-            run_s = lambda: quantized_conv2d(x, wq, ws, act_scale=static, packed=packed, **kw)
-            ms, wms = graph_ms(run_s, 20), cuda_ms(run_s, 20)
-            msd = graph_ms(lambda: quantized_conv2d(x, wq, ws, packed=packed, **kw), 20)
-            pms = cuda_ms(lambda: quantized_conv2d_plain(x, wq, ws, act_scale=static, **kw), 3)
-            lms = graph_ms(lambda: F.conv2d(x, wb, **kw), 20)
-            imm = None
-            if k == 1 and stride == 1 and c % 8 == 0 and co % 8 == 0:
-                a = quantize_act(x, static).permute(0, 2, 3, 1).reshape(-1, c)
-                b = wq.view(co, c).t()
-                imm = graph_ms(lambda: torch._int_mm(a, b), 20)
-                k5["int_mm_ms"] += count * imm
-                k5["int_mm_k5_ms"] += count * ms
-                k5["int_mm_convs"] += count
-        oh, ow = (h - 1) // stride + 1, (w - 1) // stride + 1
-        ops = 2.0 * BATCH * oh * ow * co * k * k * c
-        nbytes = x.numel() * 2 + wq.numel() + co * 4 + BATCH * oh * ow * co * 2
-        b, by = bound_ms(ops, nbytes, PEAK_INT8_OPS)
-        t_ops += count * ops / PEAK_INT8_OPS * 1e3
-        t_bytes += count * nbytes / PEAK_BYTES * 1e3
-        ops_batch += count * ops
-        plan = k5_plan(BATCH, h, w, c, co, k, stride, sm_count(dev))
-        bps = occupancy("conv_int8", plan.wg_m, plan.m_tiles, plan.smem_bytes)["blocks_per_sm"]
-        if bps != plan.blocks_per_sm:
-            raise AssertionError(f"K5 {(c, h, w, co, k, stride)}: the plan counts "
-                                 f"{plan.blocks_per_sm} blocks an SM, the occupancy API {bps}")
-        rows.append({"x": [BATCH, h, w, c], "co": co, "k": k, "stride": stride, "convs": count,
-                     "ms": ms, "ms_dynamic": msd, "wrapper_ms": wms, "plain_ms": pms,
-                     "library_ms": lms,
-                     "int_mm_ms": imm, "bound_ms": b, "bound_by": by, "gop": ops / 1e9,
-                     "mbytes": nbytes / 1e6, "tops": ops / ms / 1e9, "x_bound": ms / b,
-                     "x_library": ms / lms, "max_abs_err": 0.0,
-                     "plan": {"wg_m": plan.wg_m, "m_tiles": plan.m_tiles,
-                              "grid": list(plan.grid),
-                              "tiles_per_block": plan.tiles_per_block,
-                              "smem_bytes": plan.smem_bytes,
-                              "quant_per_element": plan.quant_per_element,
-                              "blocks_per_sm": bps}})
-        emit({"phase": "kernel_check", "kernel": "conv_int8", **rows[-1]})
-        for key, v in (("ms", ms), ("ms_dynamic", msd), ("wrapper_ms", wms), ("plain_ms", pms),
-                       ("library_ms", lms), ("bound_ms", b)):
-            k5[key] += count * v
+        row = k5_shape(gen, dev, c, h, w, co, k, stride)
+        if row["plan"]["streamed"]:
+            raise AssertionError(f"K5 {(c, h, w, co, k, stride)}: a served conv streams C")
+        row["convs"] = count
+        rows.append(row)
+        emit({"phase": "kernel_check", "kernel": "conv_int8", **row, "nvidia_smi": SMI})
+        t_ops += count * row["t_ops_ms"]
+        t_bytes += count * row["t_bytes_ms"]
+        ops_batch += count * row["gop"] * 1e9
+        for key in ("ms", "ms_dynamic", "wrapper_ms", "plain_ms", "library_ms", "bound_ms"):
+            k5[key] += count * row[key]
+        if row["int_mm_ms"] is not None:
+            k5["int_mm_ms"] += count * row["int_mm_ms"]
+            k5["int_mm_k5_ms"] += count * row["ms"]
+            k5["int_mm_convs"] += count
         cls = by_class.setdefault(int8_conv_class(k, c, stride),
                                   {"convs": 0, "ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
                                    "int_mm_ms": None, "gop": 0.0})
         cls["convs"] += count
-        for key, v in (("ms", ms), ("library_ms", lms), ("bound_ms", b), ("gop", ops / 1e9)):
-            cls[key] += count * v
-        if imm is not None:
-            cls["int_mm_ms"] = (cls["int_mm_ms"] or 0.0) + count * imm
+        for key in ("ms", "library_ms", "bound_ms", "gop"):
+            cls[key] += count * row[key]
+        if row["int_mm_ms"] is not None:
+            cls["int_mm_ms"] = (cls["int_mm_ms"] or 0.0) + count * row["int_mm_ms"]
     for cls in by_class.values():
         cls.update(tops=cls["gop"] / cls["ms"], x_bound=cls["ms"] / cls["bound_ms"],
                    x_library=cls["ms"] / cls["library_ms"])
+    extra = []
+    for c, h, w, co, k, stride in K5_EXTRA_SHAPES:
+        extra.append(k5_shape(gen, dev, c, h, w, co, k, stride))
+        emit({"phase": "kernel_check", "kernel": "conv_int8", "served": False, **extra[-1],
+              "nvidia_smi": SMI})
+    if [r["plan"]["streamed"] for r in extra] != [c > K5_MAX_C[k, s]
+                                                  for c, _, _, _, k, s in K5_EXTRA_SHAPES]:
+        raise AssertionError("K5: the extra shapes past K5_MAX_C must stream, the others not")
     return dict(
         name="conv_int8", route="cuda", source="ppyolo_tpu_torch/csrc/conv_int8.cu",
         replaces="ppyolo_tpu/ops/conv.py:88",
@@ -680,53 +716,75 @@ def kernel_k5(gen, dev) -> dict:
         tops=ops_batch / k5["ms"] / 1e9, x_bound=k5["ms"] / k5["bound_ms"],
         x_library=k5["ms"] / k5["library_ms"], by_class=by_class,
         occupancy={"ptxas": ptxas_lines(_build.PTXAS_REPORT.get("conv_int8", ""))},
-        shapes=rows, **k5)
+        shapes=rows, extra_shapes=extra, **k5)
 
 
-def nms_inputs(gen, b, k, dev):
-    """K6's inputs as ``multiclass_nms`` builds them: valid [b, k] and the
-    [b, k, k] suppress matrix of k candidates in score order, boxes in
-    clusters (so suppressions chain), 80 classes, IoU > 0.45, earlier
-    suppresses later."""
+def iou_pairs_needed(valid, labels, sup, keep) -> int:
+    """The IoUs the greedy walk needs on these candidates: for each valid i,
+    the kept earlier candidates of its label up to the first that
+    suppresses it (``sup`` [b, j, i] from ``suppress_matrix``)."""
     import torch
-    from ppyolo_tpu_torch.ops.iou import pairwise_iou
 
-    centres = torch.rand(b, 24, 2, generator=gen) * SIZE
-    pick = torch.randint(0, 24, (b, k), generator=gen)
-    xy = torch.gather(centres, 1, pick[..., None].expand(-1, -1, 2))
-    xy = xy + torch.randn(b, k, 2, generator=gen) * 6
-    wh = 20 + torch.rand(b, k, 2, generator=gen) * 60
-    boxes = torch.cat([xy - wh / 2, xy + wh / 2], -1)
-    labels = torch.randint(0, 80, (b, k), generator=gen) % 4
-    valid = torch.rand(b, k, generator=gen) < 0.9
-    earlier = torch.triu(torch.ones(k, k, dtype=torch.bool), 1)
-    sup = ((pairwise_iou(boxes, boxes, eps=1e-9) > 0.45)
-           & (labels[:, :, None] == labels[:, None, :]) & earlier)
-    return valid.to(dev), sup.to(dev)
+    k = valid.shape[1]
+    order = torch.arange(k, device=valid.device)
+    cand = (keep[:, :, None] & valid[:, None, :] & (order[:, None] < order[None, :])
+            & (labels[:, :, None] == labels[:, None, :]))
+    hit = cand & sup
+    first = torch.where(hit.any(1), hit.int().argmax(1), k)          # [b, i]
+    return int((cand & (order[None, :, None] <= first[:, None, :])).sum())
 
 
 def kernel_k6(gen, dev) -> dict:
-    """K6 at the multiclass path's b8, k = 500, bit-equal to the plain
-    fixpoint iteration; timed beside it."""
+    """K6 at the multiclass path's b8 with k = 500 (ppyolo_2x's nms_top_k)
+    and k = 1500 (past its first form's cap) on clustered candidates,
+    bit-equal to its plain version (the eager suppress matrix and the
+    fixpoint); timed in a CUDA graph of 20 calls beside the plain version
+    and, at k = 500, the first form with the eager chain that fed it
+    (``tools/kernel_ab``: earlier, current, current, earlier, in this run).
+    The bound counts the candidates' bytes and the IoUs the walk needs on
+    these candidates (12 fp32 flops each); the walk's k / 32 rounds, each
+    ending at a barrier, are its dependent chain."""
     import torch
-    from ppyolo_tpu_torch.ops.matrix_nms import nms_keep, nms_keep_plain
+    from ppyolo_tpu_torch.ops.matrix_nms import nms_keep, nms_keep_boxes_plain, suppress_matrix
+    from ppyolo_tpu_torch.tools.kernel_ab import (EARLIER_DIR, NMS_THR, ab, build_earlier,
+                                                  earlier_nms_keep, graph_ms, nms_candidates)
 
-    valid, sup = nms_inputs(gen, NMS_B, NMS_K, dev)
-    got, want = nms_keep(valid, sup), nms_keep_plain(valid, sup)
-    torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        raise AssertionError(f"K6: {int((got != want).sum())} keep flags differ")
-    ms, pms = cuda_ms(lambda: nms_keep(valid, sup), 20), cuda_ms(lambda: nms_keep_plain(valid, sup), 3)
-    nbytes = sup.numel() + 2 * valid.numel()
-    b, by = bound_ms(0.0, nbytes)
-    out = {"b": NMS_B, "k": NMS_K, "ms": ms, "plain_ms": pms, "bound_ms": b, "bound_by": by,
-           "suppress_density": float(sup.float().mean()), "kept": int(got.sum()),
-           "x_bound": ms / b, "max_abs_err": 0.0}
-    emit({"phase": "kernel_check", "kernel": "nms_keep", **out})
+    earlier = build_earlier(EARLIER_DIR, ["nms_keep"])["nms_keep"]
+    shapes = []
+    for k in (NMS_K, NMS_K_WIDE):
+        valid, boxes, labels = nms_candidates(gen, NMS_B, k, dev)
+        run_k = lambda: nms_keep(valid, boxes, labels, NMS_THR)
+        run_p = lambda: nms_keep_boxes_plain(valid, boxes, labels, NMS_THR)
+        got, want = run_k(), run_p()
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"K6 k = {k}: {int((got != want).sum())} keep flags differ")
+        ms, pms = graph_ms(run_k, 20), cuda_ms(run_p, 3)
+        old = None
+        if k <= 1024:
+            if not torch.equal(earlier_nms_keep(earlier, valid, boxes, labels), want):
+                raise AssertionError(f"K6's first form k = {k}: keep flags differ")
+            old = ab(f"nms_keep b{NMS_B} k{k}", lambda: earlier_nms_keep(
+                earlier, valid, boxes, labels), run_k, graph_ms)
+        sup = suppress_matrix(boxes, labels, NMS_THR)
+        pairs = iou_pairs_needed(valid, labels, sup, want)
+        nbytes = valid.numel() * 2 + boxes.numel() * 4 + labels.numel() * 4
+        b, by = bound_ms(12.0 * pairs, nbytes, PEAK_FP32_FLOPS)
+        shapes.append({"b": NMS_B, "k": k, "ms": ms, "plain_ms": pms, "bound_ms": b,
+                       "bound_by": by, "iou_pairs": pairs, "rounds": -(-k // 32),
+                       "kept": int(got.sum()), "valid": int(valid.sum()), "x_bound": ms / b,
+                       "first_form_ab": old, "max_abs_err": 0.0})
+        emit({"phase": "kernel_check", "kernel": "nms_keep", **shapes[-1], "nvidia_smi": SMI})
+    main = shapes[0]
+    old = main["first_form_ab"]
     return dict(name="nms_keep", route="cuda", source="ppyolo_tpu_torch/csrc/nms_keep.cu",
                 replaces="ppyolo_tpu/ops/matrix_nms.py:146",
-                note="no Pallas kernel: the JAX package runs the fixpoint as an XLA while_loop",
-                library_ms=None, per="batch of 8, k = 500 (one launch)", **out)
+                note="no Pallas kernel: the JAX package runs the fixpoint as an XLA while_loop; "
+                     "the walk's rounds (k / 32, a barrier each) are its dependent chain",
+                library_ms=None, per=f"batch of 8, k = {NMS_K} (one launch)",
+                ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+                bound_by=main["bound_by"], max_abs_err=0.0, rounds=main["rounds"],
+                first_form_ms=sum(old["earlier_ms"]) / 2, first_form_ab=old, shapes=shapes)
 
 
 def phase_probe() -> tuple:
@@ -1202,7 +1260,7 @@ def phase_int8_serving(smi: str):
     replay with K1 3, K2 1 and K5 65 launches (counted and in the trace);
     img/s of int8 and bf16 windows in turn (int8, bf16, bf16, int8), device
     ms and idle share of each; graphed bit-equal to eager; ``calibrate`` on
-    one batch pins 65 fp32 act scales and sets the graph aside, the next
+    one batch pins 65 fp32 act scales and releases the graph, the next
     batch captures anew, graphed bit-equal to eager again, the static
     serving timed; and the card's int8 head maps against its bf16 maps
     (identity BN, 2 x 160 px) within INT8_GAP_FACTOR x INT8_BF16_GAP."""
@@ -1248,9 +1306,8 @@ def phase_int8_serving(smi: str):
     graphed_equals_eager(det8, images[0], sizes, "int8, dynamic scales")
 
     n = det8.calibrate(images[1])
-    if n != INT8_CONVS or det8._graphs or len(det8._retired) != 1:
-        raise AssertionError(f"calibrate pinned {n} scales; graphs {list(det8._graphs)}, "
-                             f"set aside {len(det8._retired)}")
+    if n != INT8_CONVS or det8._graphs:
+        raise AssertionError(f"calibrate pinned {n} scales; graphs left {list(det8._graphs)}")
     scales = [m.conv.act_scale for m in int8_mods]
     if any(t.dtype != torch.float32 or t.dim() != 0 for t in scales):
         raise AssertionError("act scales must be 0-d fp32")
@@ -1328,9 +1385,54 @@ def phase_multiclass(sd, smi: str):
            "img_per_s": win["img_per_s"], "batch_ms_median": win["batch_ms_median"],
            "kept_detections": int((got[..., 0] >= 0).sum()), "bitwise_graphed_vs_eager": True,
            "device_idle_share": max(0.0, 1.0 - prof["device_ms_per_batch"]
-                                    / win["batch_ms_median"]), **prof, "nvidia_smi": smi}
+                                    / win["batch_ms_median"]), **prof,
+           "nms": multiclass_nms_split(det, images[0], sizes), "nvidia_smi": smi}
     emit(out)
     return launches, captured
+
+
+def multiclass_nms_split(det, images, sizes) -> dict:
+    """The multiclass NMS of one served batch alone, on the decode's own
+    outputs (caught from an eager forward): its device ms a batch split into
+    K6 and the rest of NMS (torch.profiler over 3 eager calls), its ms in a
+    CUDA graph of 20 calls, and no op of it taking a [B, k, k] tensor (the
+    profiler's recorded input shapes)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from ppyolo_tpu_torch.models import head
+    from ppyolo_tpu_torch.tools.kernel_ab import graph_ms
+
+    seen, real = [], head.multiclass_nms
+    head.multiclass_nms = lambda b, s, cfg: seen.append((b, s, cfg)) or real(b, s, cfg)
+    try:
+        eager_predict(det, images, sizes)
+    finally:
+        head.multiclass_nms = real
+    boxes, scores, cfg = seen[0]
+    k = min(int(cfg["nms_top_k"]), scores.shape[1] * scores.shape[2])
+    run = lambda: real(boxes, scores, cfg)
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU], record_shapes=True) as shapes:
+        run()
+        torch.cuda.synchronize()
+    kk = sorted({e.key for e in shapes.key_averages(group_by_input_shape=True)
+                 if any(len(sh) >= 3 and list(sh[:3]) == [BATCH, k, k] for sh in e.input_shapes)})
+    if kk:
+        raise AssertionError(f"multiclass NMS: ops on [{BATCH}, {k}, {k}] tensors: {kk}")
+    zero_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            run()
+        torch.cuda.synchronize()
+    if kernel_launches(prof, 3)["nms_keep"] != 1 or read_counts()["nms_keep"] != 3:
+        raise AssertionError(f"multiclass NMS: K6 launches {kernel_launches(prof, 3)} a call")
+    total, top, _ = device_time(prof, 3, n_top=12)
+    k6 = sum(e.self_device_time_total for e in prof.key_averages()
+             if "nms_keep_kernel" in e.key) / 1e3 / 3
+    return {"k": k, "device_ms_per_batch": total, "k6_device_ms": k6,
+            "rest_device_ms": total - k6, "graph_ms": graph_ms(run, 20), "top": top,
+            "kk_ops": kk}
 
 
 def phase_serving_entries(smi: str):
@@ -1640,7 +1742,11 @@ def phase_graphs_training(smi: str) -> dict:
                 raise AssertionError(f"{mode}: state after one {GRAPH_STEPS}-step replay "
                                      f"differs from {GRAPH_STEPS} one-step replays: {d}")
             multi_capture[mode] = sum(unit.graphs.captures.values())
-            multi[mode] = unit   # every graph lives to the end of the phase
+            # Every unit lives to the end of the phase: destroying two of them
+            # (gc, empty_cache) segfaulted the next profiled replay of a live
+            # unit that shares their generator, whenever a torch.profiler
+            # session had run earlier in the process (PERF.md §7).
+            multi[mode] = unit
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
         # speed of the three forms on the same batches

@@ -29,7 +29,13 @@
 //       still read 8 consecutive slots.
 //   The block walks its share of Co (tiles_per_block tiles of BN channels)
 //   with that tile resident; the host plan (ops/conv_int8.py::k5_plan)
-//   splits Co across blocks only as far as filling the card pays.  A warp
+//   splits Co across blocks only as far as filling the card pays.
+//   Where no resident tile fits shared memory (C past K5_MAX_C: 2272 for a
+//   1x1, 1440 for a 3x3 at stride 1, 416 at stride 2), the plan streams C:
+//   the A tile holds one chunk of Cc channels (a multiple of 64) and, for
+//   each Co tile, the block quantizes chunk after chunk into it (the same
+//   halo for all nine taps), running each chunk's products into the same
+//   accumulators: each element quantized once per Co tile it serves.  A warp
 //   quantizes 8 slots x 4 groups at a time: 8 runs of 128 contiguous bytes.
 //   Quantization is clip(rint(RN(f32(x) / s_x)), -127, 127).  The quotient
 //   is correctly rounded by a reciprocal multiply and one exact FMA
@@ -63,10 +69,11 @@
 //   (quantized_conv2d_plain); the int32 sum is exact in any order.
 //
 // Layouts: x NHWC bf16, y NHWC [N, oH, oW, Co] bf16, w_scale [Co] fp32, s_x one
-// fp32 on the device, bias [Co] bf16 or null.  Requires Co even, x 4-byte and
-// the packed weight 16-byte aligned (checked by the wrapper).  The wrapper
-// passes the plan: the layout, the Co tiles a block walks, the A tile's
-// slots and halo planes, the grid and the dynamic shared memory.
+// fp32 on the device, bias [Co] bf16 or null.  Any Co: an even Co stores
+// column pairs as bf16x2, an odd one column by column.  Requires the packed
+// weight 16-byte aligned (checked by the wrapper).  The wrapper passes the
+// plan: the layout, the Co tiles a block walks, the A tile's slots, halo
+// planes and channels, the grid and the dynamic shared memory.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -85,6 +92,7 @@ constexpr int SMEM_MAX = 232448;  // 227 KB: the most a block may opt in to
 
 struct Geom {
   int H, W, C, Cp, Co, M;  // M = N*oH*oW output pixels; Cp = C rounded up to 32
+  int Cc, chunks;            // channels of the A tile (Cp, or a chunk of 64 * j), chunks of Cp
   int oH, oW, k, stride, pad;
   int tiles_per_block, co_tiles;
   int plane_h, plane_w;      // halo: the A tile's parity planes (1 plane at stride 1)
@@ -154,16 +162,17 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* __restrict__ src, in
 }
 
 // The A tile: item (slot s, group gq) at byte (gq * a_slots + s) * 16 of
-// `tile`, the 16 channels 16 gq .. of slot s's input pixel (in_tab[s], or
-// -1 for zeros) quantized (r = RN(1 / s_x)).  A warp takes WS slots x WG
+// `tile`, the 16 channels c0 + 16 gq .. of slot s's input pixel (in_tab[s],
+// or -1 for zeros) quantized (r = RN(1 / s_x)), for the gpt groups of the
+// chunk from channel c0.  A warp takes WS slots x WG
 // groups at a time (lane l: slot l / WG, group l % WG), so it reads WS runs
 // of WG * 32 contiguous bytes and stores WG runs of WS * 16; it issues the
 // loads of QU such units before it quantizes any of them.
 template <bool EXACT>
 __device__ __forceinline__ void quantize_tile(const __nv_bfloat16* __restrict__ x, float sx,
-                                              float rx, const Geom& g, int vec,
-                                              const int* in_tab, unsigned char* tile) {
-  const int gpt = g.Cp / 16;
+                                              float rx, const Geom& g, int vec, int c0,
+                                              int gpt, const int* in_tab,
+                                              unsigned char* tile) {
   const int nsb = (g.a_slots + WS - 1) / WS, units = nsb * ((gpt + WG - 1) / WG);
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   for (int u0 = warp; u0 < units; u0 += QU * (THREADS / 32)) {
@@ -177,8 +186,8 @@ __device__ __forceinline__ void quantize_tile(const __nv_bfloat16* __restrict__ 
       const bool live = unit < units && s < g.a_slots && gq < gpt;
       at[u] = live ? gq * g.a_slots + s : -1;
       const int pix = live ? in_tab[s] : -1;
-      if (pix >= 0 && 16 * gq < g.C) {
-        load16(x + (long long)pix * g.C, 16 * gq, g.C, vec, h[u]);
+      if (pix >= 0 && c0 + 16 * gq < g.C) {
+        load16(x + (long long)pix * g.C, c0 + 16 * gq, g.C, vec, h[u]);
       } else {
 #pragma unroll
         for (int j = 0; j < 8; ++j) h[u][j] = 0u;
@@ -197,6 +206,52 @@ __device__ __forceinline__ void quantize_tile(const __nv_bfloat16* __restrict__ 
   }
 }
 
+// One Co tile's accumulators to y: bf16_rn(f32_rn(acc) * (s_x * w_scale[o]))
+// (+ bias, added in fp32 and rounded to bf16 once more), the JAX order, each
+// step correctly rounded; `ep` holds the tile's scales, then its biases.
+// PAIRS: an even Co, each lane's two columns stored as one bf16 pair; an odd
+// Co leaves a pixel's row 2-byte aligned, so its columns go one by one (two
+// instantiations: the branch inside the loop cost the even case 2%).
+template <int MT, int BN, bool PAIRS>
+__device__ __forceinline__ void store_tile(const int (&acc)[MT][64], const float* ep, int col0,
+                                           int co_base, const int (&out0)[MT],
+                                           const int (&out1)[MT], bool has_bias,
+                                           __nv_bfloat16* __restrict__ y, int Co) {
+#pragma unroll
+  for (int i = 0; i < WN / 8; ++i) {
+    const int co = co_base + 8 * i;
+    if (co >= Co) continue;
+    const float2 sc = *reinterpret_cast<const float2*>(ep + col0 + 8 * i);
+    const float2 bs = *reinterpret_cast<const float2*>(ep + BN + col0 + 8 * i);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int pix = hh ? out1[mt] : out0[mt];
+        if (pix < 0) continue;
+        __nv_bfloat16 v0 =
+            __float2bfloat16_rn(__fmul_rn(__int2float_rn(acc[mt][4 * i + 2 * hh]), sc.x));
+        __nv_bfloat16 v1 =
+            __float2bfloat16_rn(__fmul_rn(__int2float_rn(acc[mt][4 * i + 2 * hh + 1]), sc.y));
+        if (has_bias) {
+          v0 = __float2bfloat16_rn(__fadd_rn(__bfloat162float(v0), bs.x));
+          v1 = __float2bfloat16_rn(__fadd_rn(__bfloat162float(v1), bs.y));
+        }
+        __nv_bfloat16* const dst = y + (size_t)pix * Co + co;
+        if (PAIRS) {
+          __nv_bfloat162 pair;
+          pair.x = v0;
+          pair.y = v1;
+          *reinterpret_cast<__nv_bfloat162*>(dst) = pair;
+        } else {
+          dst[0] = v0;
+          if (co + 1 < Co) dst[1] = v1;
+        }
+      }
+    }
+  }
+}
+
 // Slot offset of tap `tap` from a row's tap-(0, 0) slot in the A tile.
 __device__ __forceinline__ int tap_slots(int tap, const Geom& g) {
   if (g.k == 1) return 0;
@@ -208,8 +263,11 @@ __device__ __forceinline__ int tap_slots(int tap, const Geom& g) {
 // WG_M warpgroups along M (2: both on BN = 128 channels; 1: the two split
 // BN = 256), each MT m64 tiles deep: BM = 64 * WG_M * MT output pixels.  A
 // 3x3 block's patch is 8 * WG_M rows x 8 * MT columns, its m64 tiles 8 x 8
-// sub-patches; a 1x1 block's pixels are consecutive.
-template <int WG_M, int MT>
+// sub-patches; a 1x1 block's pixels are consecutive.  STREAM: the A tile
+// holds a chunk of g.Cc channels at a time (C past a resident tile); the
+// resident kernels are built without the chunk loop, which would cost them
+// registers.
+template <int WG_M, int MT, bool STREAM>
 __global__ void __launch_bounds__(THREADS, MT == 1 ? 2 : 1)
 conv_int8_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
                  const float* __restrict__ w_scale, const float* __restrict__ s_x_ptr,
@@ -232,29 +290,42 @@ conv_int8_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__
   const int tile0 = blockIdx.y * g.tiles_per_block;
   const int ntiles = min(g.tiles_per_block, g.co_tiles - tile0);
   const int gpt = g.Cp / 16;                 // 16-byte groups of a tap
-  const int cpt = (g.Cp + KC - 1) / KC;      // ring chunks of a tap
   const int taps = g.k * g.k;
-  const int KT = ntiles * taps * cpt;
+  // groups and ring chunks of a tap in an A chunk: every A chunk but the last
+  // holds Cc channels (all of Cp where the A tile is resident)
+  const int chunks = STREAM ? g.chunks : 1;
+  const int cgp_full = STREAM ? g.Cc / 16 : gpt;
+  const int cgp_last = STREAM ? (g.Cp - (chunks - 1) * g.Cc) / 16 : gpt;
+  const int cpt_full = (cgp_full * 16 + KC - 1) / KC;
+  const int cpt_last = (cgp_last * 16 + KC - 1) / KC;
+  const int KT = ntiles * taps * ((chunks - 1) * cpt_full + cpt_last);
 
-  // ---- the weight ring: chunk (tile, tap, c) is groups 4c .. 4c+3 of the tap
-  int ld_tile = 0, ld_tap = 0, ld_c = 0, ld_stage = 0;
+  // ---- the weight ring: chunk (tile, A chunk ch, tap, c) is groups 4c .. 4c+3
+  // of the tap's share of A chunk ch
+  int ld_tile = 0, ld_ch = 0, ld_tap = 0, ld_c = 0, ld_stage = 0;
   auto load_next = [&]() {
     const uint32_t sb = base + g.ring_off + ld_stage * STAGE_BYTES;
     const int n0 = (tile0 + ld_tile) * BN;
+    const bool last = !STREAM || ld_ch == chunks - 1;
+    const int cgp = last ? cgp_last : cgp_full;
+    const int g0 = ld_tap * gpt + (STREAM ? ld_ch * cgp_full : 0);
 #pragma unroll
     for (int i = 0; i < B_COPIES; ++i) {
       const int j = tid + i * THREADS;
       const int q = j / BN, row = j % BN;
       const int gq = 4 * ld_c + q, co = n0 + row;
-      const bool ok = gq < gpt && co < g.Co;
-      const int8_t* src = w + ((size_t)(ld_tap * gpt + gq) * g.Co + co) * 16;
+      const bool ok = gq < cgp && co < g.Co;
+      const int8_t* src = w + ((size_t)(g0 + gq) * g.Co + co) * 16;
       sm90::cp_async_16(sb + (q * BN + row) * 16, ok ? src : w, ok ? 16 : 0);
     }
-    if (++ld_c == cpt) {
+    if (++ld_c == (last ? cpt_last : cpt_full)) {
       ld_c = 0;
       if (++ld_tap == taps) {
         ld_tap = 0;
-        ++ld_tile;
+        if (!STREAM || ++ld_ch == chunks) {
+          ld_ch = 0;
+          ++ld_tile;
+        }
       }
     }
     ld_stage = ld_stage == STAGES - 1 ? 0 : ld_stage + 1;
@@ -309,13 +380,19 @@ conv_int8_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__
   }
   __syncthreads();
 
-  // ---- quantize the A tile once
+  // ---- the A tile: quantized once where it holds all of C (resident);
+  // streamed, chunk by chunk in the loop below
   const float sx = *s_x_ptr;
-  if (sx >= RCP_LO && sx <= RCP_HI)
-    quantize_tile<false>(x, sx, __frcp_rn(sx), g, vec, in_tab, gbase);
-  else
-    quantize_tile<true>(x, sx, 0.f, g, vec, in_tab, gbase);
-  sm90::fence_proxy_async();  // the A tile's generic stores, visible to wgmma
+  const bool exact = !(sx >= RCP_LO && sx <= RCP_HI);
+  const float rx = exact ? 0.f : __frcp_rn(sx);
+  auto quantize = [&](int c0, int groups) {
+    if (exact)
+      quantize_tile<true>(x, sx, rx, g, vec, c0, groups, in_tab, gbase);
+    else
+      quantize_tile<false>(x, sx, rx, g, vec, c0, groups, in_tab, gbase);
+    sm90::fence_proxy_async();  // the A tile's generic stores, visible to wgmma
+  };
+  if (!STREAM) quantize(0, gpt);
 
   // ---- products
   const uint32_t a_lbo = g.a_slots * 16;
@@ -339,38 +416,49 @@ conv_int8_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__
     for (int i = 0; i < 64; ++i) acc[mt][i] = 0;
   int stage = 0, kt = 0;
   for (int tile = 0; tile < ntiles; ++tile) {
-    for (int tap = 0; tap < taps; ++tap) {
-      const uint32_t a_tap = tap_slots(tap, g) * 16;  // this tap's A offset
-      for (int c = 0; c < cpt; ++c, ++kt) {
-        if (tap == 0 && c == 0) {  // the tile's s_x * w_scale and bias, for its epilogue
-          float* const ep = reinterpret_cast<float*>(gbase + g.ep_off) + (tile & 1) * 2 * BN;
-          for (int j = tid; j < BN; j += THREADS) {
-            const int co = (tile0 + tile) * BN + j;
-            ep[j] = co < g.Co ? __fmul_rn(sx, w_scale[co]) : 0.f;
-            ep[BN + j] = co < g.Co && bias != nullptr ? __bfloat162float(bias[co]) : 0.f;
-          }
-        }
-        sm90::cp_async_wait<STAGES - 3>();  // this thread's copies of chunk kt have landed
-        sm90::fence_proxy_async();
-        // every thread's copies of chunk kt are visible, and both warpgroups
-        // have waited for their wgmma of chunk kt-2, whose stage the next load reuses
+    for (int ch = 0; ch < chunks; ++ch) {
+      const bool last = ch == chunks - 1;
+      // streamed: A chunk ch over the one before, once both warpgroups' wgmmas have read it
+      if (STREAM) {
+        sm90::wgmma_wait<0>();
         __syncthreads();
-        if (kt + STAGES - 2 < KT) load_next();
-        sm90::cp_async_commit();
-        const uint32_t sb = base + g.ring_off + stage * STAGE_BYTES + wn * WN * 16;
-        sm90::wgmma_fence();
+        quantize(ch * g.Cc, last ? cgp_last : cgp_full);
+      }
+      const int cpt = last ? cpt_last : cpt_full;
+      for (int tap = 0; tap < taps; ++tap) {
+        const uint32_t a_tap = tap_slots(tap, g) * 16;  // this tap's A offset
+        for (int c = 0; c < cpt; ++c, ++kt) {
+          // the tile's s_x * w_scale and bias, for its epilogue
+          if (ch == 0 && tap == 0 && c == 0) {
+            float* const ep = reinterpret_cast<float*>(gbase + g.ep_off) + (tile & 1) * 2 * BN;
+            for (int j = tid; j < BN; j += THREADS) {
+              const int co = (tile0 + tile) * BN + j;
+              ep[j] = co < g.Co ? __fmul_rn(sx, w_scale[co]) : 0.f;
+              ep[BN + j] = co < g.Co && bias != nullptr ? __bfloat162float(bias[co]) : 0.f;
+            }
+          }
+          sm90::cp_async_wait<STAGES - 3>();  // this thread's copies of chunk kt have landed
+          sm90::fence_proxy_async();
+          // every thread's copies of chunk kt are visible, and both warpgroups
+          // have waited for their wgmma of chunk kt-2, whose stage the next load reuses
+          __syncthreads();
+          if (kt + STAGES - 2 < KT) load_next();
+          sm90::cp_async_commit();
+          const uint32_t sb = base + g.ring_off + stage * STAGE_BYTES + wn * WN * 16;
+          sm90::wgmma_fence();
 #pragma unroll
-        for (int st = 0; st < 2; ++st) {  // k32 step 2c + st of the tap: 2 groups further
-          const uint32_t ka = a_tap + 2 * (2 * c + st) * a_lbo;
-          const uint64_t db = sm90::desc_noswz(sb + 2 * st * BN * 16, BN * 16, 128);
+          for (int st = 0; st < 2; ++st) {  // k32 step 2c + st of the tap: 2 groups further
+            const uint32_t ka = a_tap + 2 * (2 * c + st) * a_lbo;
+            const uint64_t db = sm90::desc_noswz(sb + 2 * st * BN * 16, BN * 16, 128);
 #pragma unroll
-          for (int mt = 0; mt < MT; ++mt)
-            sm90::wgmma_m64n128k32_s8_ss(acc[mt], sm90::desc_noswz(a_row0[mt] + ka, a_lbo, a_sbo),
-                                         db, (tap | c | st) != 0);
+            for (int mt = 0; mt < MT; ++mt)
+              sm90::wgmma_m64n128k32_s8_ss(acc[mt], sm90::desc_noswz(a_row0[mt] + ka, a_lbo, a_sbo),
+                                           db, (ch | tap | c | st) != 0);
+          }
+          sm90::wgmma_commit();
+          sm90::wgmma_wait<1>();  // chunk kt's product may run on; chunk kt-1's is done
+          stage = stage == STAGES - 1 ? 0 : stage + 1;
         }
-        sm90::wgmma_commit();
-        sm90::wgmma_wait<1>();  // chunk kt's product may run on; chunk kt-1's is done
-        stage = stage == STAGES - 1 ? 0 : stage + 1;
       }
     }
     // the tile's accumulators to y
@@ -379,60 +467,33 @@ conv_int8_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__
         reinterpret_cast<const float*>(gbase + g.ep_off) + (tile & 1) * 2 * BN;
     const int col0 = wn * WN + 2 * (lane % 4);
     const int co_base = (tile0 + tile) * BN + col0;
-#pragma unroll
-    for (int i = 0; i < WN / 8; ++i) {
-      const int co = co_base + 8 * i;
-      if (co >= g.Co) continue;
-      const float2 sc = *reinterpret_cast<const float2*>(ep + col0 + 8 * i);
-      const float2 bs = *reinterpret_cast<const float2*>(ep + BN + col0 + 8 * i);
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int pix = hh ? out1[mt] : out0[mt];
-          if (pix < 0) continue;
-          __nv_bfloat16 v0 =
-              __float2bfloat16_rn(__fmul_rn(__int2float_rn(acc[mt][4 * i + 2 * hh]), sc.x));
-          __nv_bfloat16 v1 =
-              __float2bfloat16_rn(__fmul_rn(__int2float_rn(acc[mt][4 * i + 2 * hh + 1]), sc.y));
-          if (bias != nullptr) {
-            v0 = __float2bfloat16_rn(__fadd_rn(__bfloat162float(v0), bs.x));
-            v1 = __float2bfloat16_rn(__fadd_rn(__bfloat162float(v1), bs.y));
-          }
-          __nv_bfloat162 pair;
-          pair.x = v0;
-          pair.y = v1;
-          *reinterpret_cast<__nv_bfloat162*>(y + (size_t)pix * g.Co + co) = pair;
-        }
-      }
-    }
+    if (g.Co % 2)
+      store_tile<MT, BN, false>(acc, ep, col0, co_base, out0, out1, bias != nullptr, y, g.Co);
+    else
+      store_tile<MT, BN, true>(acc, ep, col0, co_base, out0, out1, bias != nullptr, y, g.Co);
   }
   sm90::cp_async_wait<0>();
 }
 
-template <int WG_M, int MT>
-cudaError_t allow_smem() {
-  static const cudaError_t err = cudaFuncSetAttribute(
-      conv_int8_kernel<WG_M, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
-  return err;
-}
-
-// The kernel of a layout: (wg_m, m_tiles) in {(2, 1), (1, 1), (2, 2)}, or null.
 using KernelFn = void (*)(const __nv_bfloat16*, const int8_t*, const float*, const float*,
                           const __nv_bfloat16*, __nv_bfloat16*, Geom, int);
-KernelFn kernel_of(int wg_m, int m_tiles, cudaError_t* err) {
-  if (wg_m == 2 && m_tiles == 1) {
-    *err = allow_smem<2, 1>();
-    return conv_int8_kernel<2, 1>;
-  }
-  if (wg_m == 1 && m_tiles == 1) {
-    *err = allow_smem<1, 1>();
-    return conv_int8_kernel<1, 1>;
-  }
-  if (wg_m == 2 && m_tiles == 2) {
-    *err = allow_smem<2, 2>();
-    return conv_int8_kernel<2, 2>;
-  }
+
+template <int WG_M, int MT>
+KernelFn layout_kernel(bool stream, cudaError_t* err) {
+  static const cudaError_t resident = cudaFuncSetAttribute(
+      conv_int8_kernel<WG_M, MT, false>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+  static const cudaError_t streamed = cudaFuncSetAttribute(
+      conv_int8_kernel<WG_M, MT, true>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+  *err = stream ? streamed : resident;
+  return stream ? conv_int8_kernel<WG_M, MT, true> : conv_int8_kernel<WG_M, MT, false>;
+}
+
+// The kernel of a layout, (wg_m, m_tiles) in {(2, 1), (1, 1), (2, 2)}, resident
+// or streamed; null for another layout.
+KernelFn kernel_of(int wg_m, int m_tiles, bool stream, cudaError_t* err) {
+  if (wg_m == 2 && m_tiles == 1) return layout_kernel<2, 1>(stream, err);
+  if (wg_m == 1 && m_tiles == 1) return layout_kernel<1, 1>(stream, err);
+  if (wg_m == 2 && m_tiles == 2) return layout_kernel<2, 2>(stream, err);
   *err = cudaErrorInvalidValue;
   return nullptr;
 }
@@ -440,11 +501,12 @@ KernelFn kernel_of(int wg_m, int m_tiles, cudaError_t* err) {
 }  // namespace
 
 // Blocks of the kernel with `wg_m` warpgroups along M of `m_tiles` m64 tiles
-// each and `smem_bytes` of dynamic shared memory that fit one SM
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or minus the CUDA error.
-extern "C" int conv_int8_blocks_per_sm(int wg_m, int m_tiles, int smem_bytes) {
+// each, resident or `streamed`, and `smem_bytes` of dynamic shared memory that
+// fit one SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or minus the
+// CUDA error.
+extern "C" int conv_int8_blocks_per_sm(int wg_m, int m_tiles, int streamed, int smem_bytes) {
   cudaError_t err;
-  const KernelFn fn = kernel_of(wg_m, m_tiles, &err);
+  const KernelFn fn = kernel_of(wg_m, m_tiles, streamed != 0, &err);
   int blocks = 0;
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, THREADS, smem_bytes);
@@ -454,22 +516,27 @@ extern "C" int conv_int8_blocks_per_sm(int wg_m, int m_tiles, int smem_bytes) {
 // bias may be null.  The plan (ops/conv_int8.py::k5_plan): wg_m and m_tiles
 // (the layout: (2, 1), (1, 1) or (2, 2)), tiles_per_block (Co tiles of
 // 256 / wg_m channels a block walks), plane_h and plane_w (3x3: the A tile's
-// parity planes), a_slots (pixel slots of the A tile), the grid (grid_m
-// pixel blocks x grid_n Co splits) and smem_bytes.  Returns the launch's
-// CUDA error (0 on success).
+// parity planes), a_slots (pixel slots of the A tile), c_chunk (channels of
+// the A tile: Cp where it holds all of C, else a multiple of 64 below Cp, the
+// streamed layout), the grid (grid_m pixel blocks x grid_n Co splits) and
+// smem_bytes.  Returns the launch's CUDA error (0 on success).
 extern "C" int conv_int8_launch(const void* x, const void* w, const void* w_scale,
                                 const void* s_x, const void* bias, void* y, int N, int H, int W,
                                 int C, int Co, int k, int stride, int wg_m, int m_tiles,
                                 int tiles_per_block, int plane_h, int plane_w, int a_slots,
-                                int grid_m, int grid_n, int smem_bytes, void* stream) {
+                                int c_chunk, int grid_m, int grid_n, int smem_bytes,
+                                void* stream) {
+  const int Cp = (C + 31) / 32 * 32;
   cudaError_t err;
-  const KernelFn fn = kernel_of(wg_m, m_tiles, &err);
+  const KernelFn fn = kernel_of(wg_m, m_tiles, c_chunk < Cp, &err);
   if (err != cudaSuccess) return static_cast<int>(err);
   Geom g;
   g.H = H;
   g.W = W;
   g.C = C;
-  g.Cp = (C + 31) / 32 * 32;
+  g.Cp = Cp;
+  g.Cc = c_chunk;
+  g.chunks = (g.Cp + c_chunk - 1) / max(c_chunk, 1);
   g.Co = Co;
   g.k = k;
   g.stride = stride;
@@ -485,11 +552,14 @@ extern "C" int conv_int8_launch(const void* x, const void* w, const void* w_scal
   g.a_slots = a_slots;
   g.tiles_x = (g.oW + 8 * m_tiles - 1) / (8 * m_tiles);
   g.tiles_y = (g.oH + 8 * wg_m - 1) / (8 * wg_m);
-  g.ring_off = (a_slots * g.Cp + 127) / 128 * 128;
+  if (c_chunk < 32 || c_chunk > g.Cp || (c_chunk < g.Cp && c_chunk % KC))
+    return static_cast<int>(cudaErrorInvalidValue);
+  g.ring_off = (a_slots * g.Cc + 127) / 128 * 128;
   g.tab_off = g.ring_off + STAGES * bn * KC;
   g.ep_off = g.tab_off + (4 * (a_slots + bm) + 15) / 16 * 16;
   int need = g.ep_off + 16 * bn + 128;  // + base alignment
-  if (g.Cp % KC) need = max(need, g.ring_off + 2 * a_slots * 16 + 128);  // the phantom step
+  // the phantom step past a resident tile (a streamed chunk's stays inside its tile)
+  if (g.chunks == 1 && g.Cp % KC) need = max(need, g.ring_off + 2 * a_slots * 16 + 128);
   if (smem_bytes < need || smem_bytes > SMEM_MAX || grid_n * tiles_per_block < g.co_tiles)
     return static_cast<int>(cudaErrorInvalidValue);
   const int vec = C % 8 == 0 ? 8 : C % 2 == 0 ? 2 : 1;

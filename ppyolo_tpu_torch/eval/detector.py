@@ -21,9 +21,11 @@ into it in place.
 quantized convs run K5 on the card with a dynamic activation scale until
 ``calibrate`` pins static ones.  A captured graph holds one of the two
 paths, so ``calibrate`` and an int8 ``set_params`` (which re-quantizes and
-drops the static scales, as the JAX package) set the graphs aside and the
-next predict captures anew.  The graphs set aside stay alive with the
-Detector: their outputs may still be read, and they share its pool.
+drops the static scales, as the JAX package) release the graphs and the
+next predict captures anew.  No caller holds a graph's output (``_run``
+copies the detections to the host before it returns), so a released
+graph's static inputs, outputs and pool blocks are free once its stream
+is done; the next capture reuses those blocks of the shared pool.
 """
 from __future__ import annotations
 
@@ -50,7 +52,6 @@ class Detector:
         self.model = model.to(device=self.device, dtype=self.compute_dtype,
                               memory_format=torch.channels_last).eval()
         self._graphs = {}   # group -> Graphs, all in one memory pool
-        self._retired = []  # graphs set aside by calibrate / an int8 set_params
         self._capture = dist.can_capture(self.device)
         self._pool = torch.cuda.graph_pool_handle() if self._capture else None
         self.set_params(state_dict)
@@ -75,11 +76,14 @@ class Detector:
                                     fold_bn=self._fold_bn)
         if self._precision == "int8":
             match_int8_form(self.model, sd)
-            self._retire_graphs()
+            self._release_graphs()
         self.model.load_state_dict(sd)
 
-    def _retire_graphs(self) -> None:
-        self._retired.extend(self._graphs.values())
+    def _release_graphs(self) -> None:
+        """Drop every captured graph (its static inputs and outputs with it)
+        once the streams it replays on are done with it."""
+        for g in self._graphs.values():
+            g.release()
         self._graphs = {}
 
     @torch.no_grad()
@@ -98,7 +102,7 @@ class Detector:
             if isinstance(m, ConvNormAct) and m.conv.is_int8 and name in scales:
                 m.conv.set_act_scale(scales[name])
                 n += 1
-        self._retire_graphs()
+        self._release_graphs()
         return n
 
     def process_image(self, img_bgr: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:

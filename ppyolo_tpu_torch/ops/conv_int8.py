@@ -29,10 +29,11 @@ Tensors are logical NCHW in channels_last memory, weights int8 OIHW.
                         launches`` counts K5's launches
 
 K5 keeps a block's whole A tile (its pixels' input, all of C) in shared
-memory, so C has a ceiling, ``K5_MAX_C`` by (k, stride): 2272 for a 1x1,
-1440 for a 3x3 at stride 1, 416 at stride 2.  A wider conv raises at its
-first call on the card.  The widest of the repo's configs are 2050, 514
-and 256.
+memory where it fits: up to ``K5_MAX_C`` by (k, stride), 2272 for a 1x1,
+1440 for a 3x3 at stride 1, 416 at stride 2 (the widest of the repo's
+configs are 2050, 514 and 256).  A wider conv takes the streamed layout:
+the A tile holds one chunk of C at a time, quantized once per Co tile.
+Any Co, odd too.
 """
 from __future__ import annotations
 
@@ -130,7 +131,8 @@ SMEM_BLOCK_MAX = 232448   # 227 KB: the most shared memory a block may opt in to
 SMEM_SM = 233472          # 228 KB an SM; the runtime reserves 1 KB a block
 SMS = 132                 # SMs of an H100 SXM (the wrapper reads the card's own count)
 LAYOUTS = ((2, 1), (1, 1), (2, 2))   # (wg_m, m_tiles) K5 is built for
-# the widest C some layout fits in shared memory, by (k, stride)
+# the widest C a resident A tile (all of C) fits in shared memory, by (k,
+# stride); past it the plan streams C through the A tile in chunks
 K5_MAX_C = {(1, 1): 2272, (1, 2): 2272, (3, 1): 1440, (3, 2): 416}
 REG_BLOCKS = {1: 2, 2: 1}  # blocks an SM by registers, by m_tiles (__launch_bounds__)
 # The cost model of one block, in SM cycles, that picks between plans: int8
@@ -156,6 +158,7 @@ class K5Plan:
     patch: Optional[Tuple[int, int]]   # 3x3: a block's (rows, columns) of output pixels
     planes: Tuple[int, int, int]       # 3x3: the A tile's parity planes (count, rows, columns)
     a_slots: int               # pixel slots of the A tile
+    c_chunk: int               # channels of the A tile: cp (resident), or a chunk of C (streamed)
     co_tiles: int              # Co tiles of bn channels
     tiles_per_block: int       # Co tiles a block walks with its A tile resident
     grid: Tuple[int, int]      # (pixel blocks, Co splits)
@@ -167,6 +170,10 @@ class K5Plan:
     @property
     def co_splits(self) -> int:
         return self.grid[1]
+
+    @property
+    def streamed(self) -> bool:
+        return self.c_chunk < self.cp
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -191,9 +198,13 @@ def _read_positions(n_out: int, k: int, stride: int, pad: int, n_in: int) -> int
 
 
 def _plan(n, h, w, c, co, k, stride, wg_m, m_tiles, tiles_per_block,
-          sms: int = SMS) -> Optional[K5Plan]:
+          sms: int = SMS, c_chunk: Optional[int] = None) -> Optional[K5Plan]:
+    """One plan; ``c_chunk`` (a multiple of K5_KC below cp) streams C
+    through the A tile in chunks of that many channels."""
     oh, ow = (h - 1) // stride + 1, (w - 1) // stride + 1
     pad, cp = (k - 1) // 2, padded_channels(c)
+    cc = cp if c_chunk is None else c_chunk
+    streamed = cc < cp
     bm, bn = 64 * wg_m * m_tiles, K5_WN * 2 // wg_m
     if k == 1:
         patch, planes, a_slots = None, (0, 0, 0), bm
@@ -210,10 +221,10 @@ def _plan(n, h, w, c, co, k, stride, wg_m, m_tiles, tiles_per_block,
         quantized = n * (_covered(oh, patch[0], stride, pad, h, rows * stride)
                          * _covered(ow, patch[1], stride, pad, w, cols * stride))
         read = n * (_read_positions(oh, k, stride, pad, h) * _read_positions(ow, k, stride, pad, w))
-    a_bytes = _cdiv(a_slots * cp, 128) * 128
+    a_bytes = _cdiv(a_slots * cc, 128) * 128
     # A tile, weight ring, slot and row tables, two tiles' epilogue scales and biases
     smem = a_bytes + K5_STAGES * bn * K5_KC + _cdiv(4 * (a_slots + bm), 16) * 16 + 16 * bn + 128
-    if cp % K5_KC:   # a tap's phantom k32 step reads 2 groups past the A tile
+    if cp % K5_KC and not streamed:   # a tap's phantom k32 step reads 2 groups past the A tile
         smem = max(smem, a_bytes + 2 * a_slots * 16 + 128)
     if smem > SMEM_BLOCK_MAX:
         return None
@@ -224,6 +235,9 @@ def _plan(n, h, w, c, co, k, stride, wg_m, m_tiles, tiles_per_block,
     t_tile = max(bm * bn * taps * _cdiv(cp, K5_KC) * K5_KC * 2 / _OPS_CYCLE,
                  bm * bn * 2 / _DRAM_B_CYCLE, bn * taps * cp / _L2_B_CYCLE)
     t_a = max(a_slots * cp / _QUANT_CYCLE, a_slots * c * 2 / _DRAM_B_CYCLE)
+    if streamed:   # every Co tile quantizes its chunks anew
+        t_a *= tiles_per_block
+        quantized *= co_tiles / splits
     t_prod = tiles_per_block * t_tile
     if bps > 1:   # a co-resident block's products run under this one's A tile, and back
         block = max(t_prod, t_a) + _OVERLAP * min(t_prod, t_a) + _FIXED_CYCLES
@@ -231,16 +245,18 @@ def _plan(n, h, w, c, co, k, stride, wg_m, m_tiles, tiles_per_block,
         block = t_prod + t_a + _FIXED_CYCLES
     cost = _cdiv(m_blocks * splits, sms * bps) * bps * block
     return K5Plan(wg_m=wg_m, m_tiles=m_tiles, bm=bm, bn=bn, cp=cp, patch=patch, planes=planes,
-                  a_slots=a_slots, co_tiles=co_tiles, tiles_per_block=tiles_per_block,
+                  a_slots=a_slots, c_chunk=cc, co_tiles=co_tiles,
+                  tiles_per_block=tiles_per_block,
                   grid=(m_blocks, splits), smem_bytes=smem, blocks_per_sm=bps,
                   quant_per_element=splits * quantized / read, cost_cycles=cost)
 
 
 def k5_candidates(n: int, h: int, w: int, c: int, co: int, k: int, stride: int,
                   sms: int = SMS) -> list:
-    """Every plan of the conv that fits shared memory: each layout of
-    ``LAYOUTS`` (BM 128 x BN 128, BM 64 x BN 256, BM 256 x BN 128), each
-    number of Co tiles a block walks; costed for ``sms`` SMs."""
+    """Every resident plan of the conv (the A tile holds all of C) that
+    fits shared memory: each layout of ``LAYOUTS`` (BM 128 x BN 128, BM 64
+    x BN 256, BM 256 x BN 128), each number of Co tiles a block walks;
+    costed for ``sms`` SMs."""
     plans = []
     for wg_m, m_tiles in LAYOUTS:
         tiles = _cdiv(co, K5_WN * 2 // wg_m)
@@ -248,6 +264,23 @@ def k5_candidates(n: int, h: int, w: int, c: int, co: int, k: int, stride: int,
             p = _plan(n, h, w, c, co, k, stride, wg_m, m_tiles, tpb, sms)
             if p is not None:
                 plans.append(p)
+    return plans
+
+
+def k5_streamed_candidates(n: int, h: int, w: int, c: int, co: int, k: int, stride: int,
+                           sms: int = SMS) -> list:
+    """The streamed plans of a conv too wide for a resident A tile: each
+    layout with one Co tile a block and, as its A chunk, the widest
+    multiple of K5_KC channels that fits one block an SM and, where
+    registers allow two, the widest that fits two."""
+    plans = []
+    for wg_m, m_tiles in LAYOUTS:
+        fits = {}
+        for cc in range(K5_KC, padded_channels(c), K5_KC):
+            p = _plan(n, h, w, c, co, k, stride, wg_m, m_tiles, 1, sms, cc)
+            if p is not None:
+                fits[p.blocks_per_sm] = p    # the widest chunk at each occupancy
+        plans += list(fits.values())
     return plans
 
 
@@ -259,15 +292,14 @@ def k5_plan(n: int, h: int, w: int, c: int, co: int, k: int, stride: int,
     fastest, then the one that quantizes each element fewest times.  A
     block's A tile holds its pixels' input, quantized once; a conv
     quantizes each input element ``quant_per_element`` times: the Co splits
-    (1x1) times the halos' overlap (3x3).  Raises past ``K5_MAX_C``."""
-    plans = k5_candidates(n, h, w, c, co, k, stride, sms)
-    if not plans:
-        raise ValueError(f"K5: no plan fits shared memory for C {c}, k {k}, stride {stride} "
-                         f"(K5 takes C up to {K5_MAX_C[k, stride]} there)")
+    (1x1) times the halos' overlap (3x3).  Past ``K5_MAX_C`` no resident
+    plan fits: the cheapest of ``k5_streamed_candidates``."""
+    plans = (k5_candidates(n, h, w, c, co, k, stride, sms)
+             or k5_streamed_candidates(n, h, w, c, co, k, stride, sms))
     return min(plans, key=lambda p: (p.cost_cycles, p.quant_per_element))
 
 
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 16 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 17 + [ctypes.c_void_p]
 
 
 @functools.lru_cache(maxsize=None)
@@ -290,8 +322,7 @@ def quantized_conv2d(x: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor, *
                      act_scale: Optional[torch.Tensor] = None,
                      packed: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The int8 conv on x's device: the plain version for a CPU tensor, K5
-    for a CUDA tensor (bf16 x, even Co, C up to ``K5_MAX_C``; it raises
-    otherwise).  ``packed`` is ``pack_int8_weight(wq)``, made once by a
+    for a CUDA tensor (bf16 x; it raises otherwise).  ``packed`` is ``pack_int8_weight(wq)``, made once by a
     caller that reuses wq; without it K5's call packs wq itself.
     ``act_scale`` (0-d fp32) pins a static scale; without it the scale is
     ``dynamic_act_scale(x)``."""
@@ -307,8 +338,6 @@ def quantized_conv2d(x: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor, *
     co = wq.shape[0]
     if x.dtype != torch.bfloat16:
         raise ValueError(f"quantized_conv2d kernel takes bf16 x, got {x.dtype}")
-    if co % 2:
-        raise ValueError(f"quantized_conv2d kernel needs an even Co, got {co}")
     for name, t, shape in (("weight_scale", w_scale, (co,)), ("act_scale", act_scale, ())):
         if t is not None and (t.dtype != torch.float32 or tuple(t.shape) != shape
                               or t.device != x.device):
@@ -346,7 +375,7 @@ def quantized_conv2d(x: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor, *
                  0 if bias is None else bias.data_ptr(), y.data_ptr(),
                  n, h, w, c, co, k, stride, plan.wg_m, plan.m_tiles, plan.tiles_per_block,
                  rows, cols,
-                 plan.a_slots, *plan.grid, plan.smem_bytes,
+                 plan.a_slots, plan.c_chunk, *plan.grid, plan.smem_bytes,
                  torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"quantized_conv2d kernel launch failed: cudaError {err}")

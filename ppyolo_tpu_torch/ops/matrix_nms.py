@@ -5,9 +5,11 @@ two-stage exact top-k over a per-level virtual concat of the scores, the
 decay matrix in fp32, and a fixed ``[B, keep_top_k, 6]`` output with -1
 rows for empty slots.  ``multiclass_nms``: per-class greedy NMS over the
 top ``nms_top_k`` (anchor, class) pairs, the same output.  Its greedy keep
-is ``nms_keep``: the plain version (the JAX package's fixpoint iteration,
-eagerly) for a CPU tensor, the Hopper kernel K6 (``csrc/nms_keep.cu``) for
-a CUDA tensor; ``nms_keep.launches`` counts K6's launches.
+is ``nms_keep``: the plain version (the [B, k, k] suppress matrix and the
+JAX package's fixpoint iteration, eagerly) for a CPU tensor, the Hopper
+kernel K6 (``csrc/nms_keep.cu``, which computes its own IoUs from the
+candidates' boxes) for a CUDA tensor; ``nms_keep.launches`` counts K6's
+launches.
 
 ``lax.top_k`` breaks ties by the lowest index; ``torch.topk`` promises no
 order for ties (and bf16 scores tie often).  ``_topk`` therefore selects
@@ -136,7 +138,27 @@ def nms_keep_plain(valid: torch.Tensor, suppress: torch.Tensor) -> torch.Tensor:
     return keep
 
 
-_KEEP_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+def suppress_matrix(boxes: torch.Tensor, labels: torch.Tensor,
+                    nms_threshold: float) -> torch.Tensor:
+    """[B, k, k] bool, ``[b, j, i]``: candidate j comes before i, has its
+    label and overlaps it by IoU > ``nms_threshold`` (the JAX package's
+    ``suppress``)."""
+    k = boxes.shape[1]
+    iou = pairwise_iou(boxes, boxes, eps=1e-9)
+    same = labels[:, :, None] == labels[:, None, :]
+    earlier = torch.triu(torch.ones((k, k), dtype=torch.bool, device=boxes.device), 1)
+    return (iou > nms_threshold) & same & earlier
+
+
+def nms_keep_boxes_plain(valid: torch.Tensor, boxes: torch.Tensor, labels: torch.Tensor,
+                         nms_threshold: float) -> torch.Tensor:
+    """K6's plain version: the suppress matrix built eagerly, then the
+    fixpoint ``nms_keep_plain``."""
+    return nms_keep_plain(valid, suppress_matrix(boxes, labels, nms_threshold))
+
+
+_KEEP_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_float]
+                  + [ctypes.c_void_p])
 
 
 @functools.lru_cache(maxsize=None)
@@ -144,31 +166,47 @@ def _keep_lib():
     lib = _build.load("nms_keep")
     lib.nms_keep_launch.argtypes = _KEEP_ARGTYPES
     lib.nms_keep_launch.restype = ctypes.c_int
-    lib.nms_keep_max_k.restype = ctypes.c_int
+    lib.nms_keep_scratch_bytes.argtypes = [ctypes.c_int] * 2
+    lib.nms_keep_scratch_bytes.restype = ctypes.c_longlong
     return lib
 
 
 @_build.counted
-def nms_keep(valid: torch.Tensor, suppress: torch.Tensor) -> torch.Tensor:
-    """The greedy keep on valid's device: ``nms_keep_plain`` for a CPU
-    tensor, K6 for a CUDA tensor (k <= 1024; it raises otherwise)."""
+def nms_keep(valid: torch.Tensor, boxes: torch.Tensor, labels: torch.Tensor,
+             nms_threshold: float) -> torch.Tensor:
+    """The greedy keep of k candidates in score order on valid's device:
+    valid [B, k] bool, boxes [B, k, 4] xyxy, labels [B, k] int; a valid
+    candidate is kept unless an earlier kept one of its label overlaps it
+    by IoU > ``nms_threshold``.  ``nms_keep_boxes_plain`` for a CPU tensor;
+    K6 for a CUDA tensor (fp32 boxes, int32 labels; it raises otherwise),
+    which computes the IoUs it needs itself: no [B, k, k] tensor is made."""
     bsz, k = valid.shape
-    if valid.dtype != torch.bool or suppress.dtype != torch.bool:
-        raise ValueError(f"nms_keep: valid and suppress must be bool, got {valid.dtype}, "
-                         f"{suppress.dtype}")
-    if tuple(suppress.shape) != (bsz, k, k):
-        raise ValueError(f"nms_keep: suppress {tuple(suppress.shape)} is not ({bsz}, {k}, {k})")
+    if valid.dtype != torch.bool:
+        raise ValueError(f"nms_keep: valid must be bool, got {valid.dtype}")
+    if tuple(boxes.shape) != (bsz, k, 4) or tuple(labels.shape) != (bsz, k):
+        raise ValueError(f"nms_keep: boxes {tuple(boxes.shape)} and labels "
+                         f"{tuple(labels.shape)} are not ({bsz}, {k}, 4) and ({bsz}, {k})")
     if valid.device.type == "cpu":
-        return nms_keep_plain(valid, suppress)
-    if valid.device.type != "cuda" or suppress.device != valid.device:
-        raise ValueError(f"nms_keep: valid on {valid.device}, suppress on {suppress.device}")
+        return nms_keep_boxes_plain(valid, boxes, labels, nms_threshold)
+    if valid.device.type != "cuda" or {boxes.device, labels.device} != {valid.device}:
+        raise ValueError(f"nms_keep: valid on {valid.device}, boxes on {boxes.device}, "
+                         f"labels on {labels.device}")
+    if boxes.dtype != torch.float32 or labels.dtype != torch.int32:
+        raise ValueError(f"nms_keep kernel takes fp32 boxes and int32 labels, got "
+                         f"{boxes.dtype} and {labels.dtype}")
+    if k >= 2 ** 31 - 32:
+        raise ValueError(f"nms_keep kernel indexes candidates in int32, got k = {k}")
+    valid, boxes, labels = valid.contiguous(), boxes.contiguous(), labels.contiguous()
+    if boxes.data_ptr() % 16:
+        raise ValueError("nms_keep: boxes must be 16-byte aligned")
     lib = _keep_lib()
-    if k > lib.nms_keep_max_k():
-        raise ValueError(f"nms_keep kernel takes k <= {lib.nms_keep_max_k()}, got {k}")
-    valid, suppress = valid.contiguous(), suppress.contiguous()
+    nbytes = lib.nms_keep_scratch_bytes(bsz, k)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=valid.device) if nbytes else None
     keep = torch.empty_like(valid)
     _build.note_launch(nms_keep)
-    err = lib.nms_keep_launch(valid.data_ptr(), suppress.data_ptr(), keep.data_ptr(), bsz, k,
+    err = lib.nms_keep_launch(valid.data_ptr(), boxes.data_ptr(), labels.data_ptr(),
+                              keep.data_ptr(), 0 if scratch is None else scratch.data_ptr(),
+                              bsz, k, float(nms_threshold),
                               torch.cuda.current_stream(valid.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"nms_keep kernel launch failed: cudaError {err}")
@@ -198,12 +236,7 @@ def multiclass_nms(boxes: torch.Tensor, scores: torch.Tensor,
     valid = vals > thr
     labels = idx % c
     cand = _take(boxes, idx // c)                                 # [B, k, 4]
-
-    iou = pairwise_iou(cand, cand, eps=1e-9)
-    same = labels[:, :, None] == labels[:, None, :]
-    earlier = torch.triu(torch.ones((k, k), dtype=torch.bool, device=iou.device), 1)
-    suppress = (iou > nms_thr) & same & earlier                   # [b, j, i]: j before i
-    keep = nms_keep(valid, suppress)
+    keep = nms_keep(valid, cand, labels.int(), nms_thr)
     # kept rows with non-positive scores (a negative threshold) stay valid
     final = torch.where(keep, vals, float("-inf"))
     out_vals, out_idx = _topk(final, min(keep_top_k, k))

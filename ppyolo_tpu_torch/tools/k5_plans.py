@@ -69,7 +69,7 @@ def measure() -> list:
         for p in ci.k5_candidates(*shape, sms):
             args = (x.data_ptr(), packed.data_ptr(), ws.data_ptr(), s_x.data_ptr(), 0,
                     y.data_ptr(), BATCH, h, w, c, co, k, stride, p.wg_m, p.m_tiles,
-                    p.tiles_per_block, p.planes[1], p.planes[2], p.a_slots, *p.grid,
+                    p.tiles_per_block, p.planes[1], p.planes[2], p.a_slots, p.c_chunk, *p.grid,
                     p.smem_bytes, stream)
             y.zero_()
             if launch(*args) != 0:

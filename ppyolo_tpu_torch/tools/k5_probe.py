@@ -15,6 +15,8 @@ source by hand.  Variants:
   no_quant_math  the A tile filled with the raw bits instead of their int8
                  (the quantization math's cost; wrong results)
   no_a_loads     nor read from x either (the A tile's loads' cost)
+  no_chunk_offset the A tile's loads from channel 0 (the cost of the streamed
+                 chunk's offset; right for a resident tile)
 
 ``--phases`` builds a copy that stamps ``%globaltimer`` (256 ns steps on
 the H100) in each block at its start, after its slot and row tables, after
@@ -39,10 +41,15 @@ BATCH, SIZE, ITERS = 8, 608, 20
 _NO_QUANT = [(f"q.{f} = quant4<EXACT>(h[u][{i}], h[u][{i + 1}], sx, rx);",
               f"q.{f} = h[u][{i}] ^ h[u][{i + 1}];") for f, i in zip("xyzw", (0, 2, 4, 6))]
 VARIANTS = {
-    "exact": [("if (sx >= RCP_LO && sx <= RCP_HI)", "if (false)")],
+    "exact": [("const bool exact = !(sx >= RCP_LO && sx <= RCP_HI);",
+               "const bool exact = true;")],
     "no_quant_math": _NO_QUANT,
-    "no_a_loads": _NO_QUANT + [("if (pix >= 0 && 16 * gq < g.C) {\n        load16",
+    "no_a_loads": _NO_QUANT + [("if (pix >= 0 && c0 + 16 * gq < g.C) {\n        load16",
                                 "if (false) {\n        load16")],
+    "no_chunk_offset": [("if (pix >= 0 && c0 + 16 * gq < g.C) {\n        load16(x + (long long)pix"
+                         " * g.C, c0 + 16 * gq,",
+                         "if (pix >= 0 && 16 * gq < g.C) {\n        load16(x + (long long)pix"
+                         " * g.C, 16 * gq,")],
 }
 _PHASES = [
     ('#include "sm90.cuh"\n',
@@ -55,9 +62,9 @@ _PHASES = [
     ("    out_tab[r] = pix;\n  }\n  __syncthreads();\n",
      "    out_tab[r] = pix;\n  }\n  __syncthreads();\n  const unsigned long long t1_ = gtime();\n"
      "  unsigned long long t2_ = 0, t3_ = 0;\n"),
-    ("        __syncthreads();\n        if (kt + STAGES - 2 < KT) load_next();",
-     "        __syncthreads();\n        if (kt == 0) t2_ = gtime();\n"
-     "        if (kt + STAGES - 2 < KT) load_next();"),
+    ("          __syncthreads();\n          if (kt + STAGES - 2 < KT) load_next();",
+     "          __syncthreads();\n          if (kt == 0) t2_ = gtime();\n"
+     "          if (kt + STAGES - 2 < KT) load_next();"),
     ("    sm90::wgmma_wait<0>();\n    const float* const ep =",
      "    sm90::wgmma_wait<0>();\n    if (tile == 0) t3_ = gtime();\n    const float* const ep ="),
     ("  sm90::cp_async_wait<0>();\n}\n",
@@ -117,8 +124,8 @@ def _inputs(gen, c, h, w, co, k, stride):
     p = ci.k5_plan(BATCH, h, w, c, co, k, stride, ci.sm_count(dev))
     keep = (x, ci.pack_int8_weight(wq), ws, ci.dynamic_act_scale(x) * 0.6, y)
     args = (*(t.data_ptr() for t in keep[:4]), 0, y.data_ptr(), BATCH, h, w, c, co, k, stride,
-            p.wg_m, p.m_tiles, p.tiles_per_block, p.planes[1], p.planes[2], p.a_slots, *p.grid,
-            p.smem_bytes, torch.cuda.current_stream().cuda_stream)
+            p.wg_m, p.m_tiles, p.tiles_per_block, p.planes[1], p.planes[2], p.a_slots,
+            p.c_chunk, *p.grid, p.smem_bytes, torch.cuda.current_stream().cuda_stream)
     return keep, args, p
 
 

@@ -25,7 +25,16 @@ interface of the kernels that preceded each redesign:
   conv_int8_launch(x, w, w_scale, s_x, bias, y, N, H, W, C, Co, k, stride,
       oH, oW, stream), w K-major [Co, k*k*Cp] int8 with each tap's channels
       zero-padded to Cp = C rounded up to 16 (K5's first form, commit
-      ``76e2a95``: mma.sync, the activation quantized on load)
+      ``76e2a95``: mma.sync, the activation quantized on load); with
+      ``--conv-int8-form tile`` K5's A-tile form (commit ``3044a30``, before
+      C could stream): today's interface without ``c_chunk`` and today's
+      packed weight, launched with today's (resident) plan
+  nms_keep_launch(valid, suppress, keep, B, k, stream), suppress the
+      [B, k, k] bool matrix built eagerly by the caller (K6's first form,
+      commit ``76e2a95``, k <= 1024; its source is kept in
+      ``tools/earlier/nms_keep.cu``): timed with that eager chain
+      (``earlier_nms_keep``), since the current K6 builds its suppression
+      itself from the boxes
 
 e.g. an earlier commit's ``ppyolo_tpu_torch/csrc`` unpacked with
 ``git archive`` (the wmma K2/K4 before PR 4's commit, the first K1/K3 at
@@ -36,7 +45,8 @@ it).  K3 had two later forms, named by ``--dcn-bwd-form``: ``binned``
 keys_out, vals_out, temp, temp_bytes`` there, temp_bytes from its
 ``dcn_bwd_sort_bytes(N, H, W, oH, oW, k2)``.  ``--kernels`` picks which of
 the five to compare (K5's rows also sum ms a batch, earlier and current,
-by class: 3x3 s1, 3x3 s2, 1x1 with C % 8 = 0, 1x1 with C = 2 mod 8).  The earlier
+by class: 3x3 s1, 3x3 s2, 1x1 with C % 8 = 0, 1x1 with C = 2 mod 8; K6's
+at b8 with k = 500 and 1024 clustered candidates, ``nms_candidates``).  The earlier
 sources are built with the same nvcc flags into ``build/kernels/earlier/``.
 
 Usage: python -m ppyolo_tpu_torch.tools.kernel_ab --earlier DIR [--kernels dcn_fwd,conv_int8]
@@ -65,6 +75,7 @@ _EARLIER_ARGTYPES = {
     "fused_stem": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
     "dcn_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12 + [ctypes.c_void_p],
     "conv_int8": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+    "nms_keep": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
 }
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _EARLIER_DCN_BWD = {   # K3's earlier C interfaces, by form
@@ -73,14 +84,20 @@ _EARLIER_DCN_BWD = {   # K3's earlier C interfaces, by form
     "sorted": [_P] * 12 + [_I] * 12 + [_P],
 }
 _EARLIER_ARGTYPES["dcn_bwd"] = _EARLIER_DCN_BWD["first"]
+_EARLIER_CONV_INT8 = {"first": _EARLIER_ARGTYPES["conv_int8"],   # K5's earlier forms
+                      "tile": [_P] * 6 + [_I] * 16 + [_P]}
 BINNED_CAP = 64   # the binned form's entries per dx pixel
 DCN_SHAPES = ((38, 2), (19, 1))   # stage5_0 once, stage5_1 / 5_2 twice a batch; C = 512
+EARLIER_DIR = Path(__file__).resolve().parent / "earlier"   # K6's first form
+NMS_THR = 0.45                     # ppyolo_2x's multiclass nms_threshold
+NMS_SHAPES = ((8, 500), (8, 1024))  # (b, k): nms_top_k 500, and K6's first form's cap
 
 
-def build_earlier(src_dir: Path, names, dcn_bwd_form: str = "first") -> dict:
+def build_earlier(src_dir: Path, names, dcn_bwd_form: str = "first",
+                  conv_int8_form: str = "first") -> dict:
     """Compile the earlier ``<name>.cu`` of each name, in parallel; their
     launch functions (K3's in the C interface of ``dcn_bwd_form``, with
-    its library as ``.lib``)."""
+    its library as ``.lib``; K5's in that of ``conv_int8_form``)."""
     out = _build.BUILD_DIR / "earlier"
     out.mkdir(parents=True, exist_ok=True)
     procs = {name: subprocess.Popen(
@@ -95,6 +112,7 @@ def build_earlier(src_dir: Path, names, dcn_bwd_form: str = "first") -> dict:
         lib = ctypes.CDLL(str(out / f"lib{name}.so"))
         fn = getattr(lib, f"{name}_launch")
         fn.argtypes = (_EARLIER_DCN_BWD[dcn_bwd_form] if name == "dcn_bwd"
+                       else _EARLIER_CONV_INT8[conv_int8_form] if name == "conv_int8"
                        else _EARLIER_ARGTYPES[name])
         fn.restype = ctypes.c_int
         fns[name] = (fn, lib) if name == "dcn_bwd" else fn
@@ -163,17 +181,20 @@ def main(argv=None) -> list:
                     help="comma-separated subset of " + ",".join(_EARLIER_ARGTYPES))
     ap.add_argument("--dcn-bwd-form", default="first", choices=sorted(_EARLIER_DCN_BWD),
                     help="the C interface of the earlier dcn_bwd.cu")
+    ap.add_argument("--conv-int8-form", default="first", choices=sorted(_EARLIER_CONV_INT8),
+                    help="the C interface of the earlier conv_int8.cu")
     a = ap.parse_args(argv)
     names = a.kernels.split(",")
     if not set(names) <= set(_EARLIER_ARGTYPES):
         raise ValueError(f"--kernels {a.kernels}: not a subset of {list(_EARLIER_ARGTYPES)}")
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA card: the A/B runs on the card")
-    earlier = build_earlier(a.earlier, names, a.dcn_bwd_form)
+    earlier = build_earlier(a.earlier, names, a.dcn_bwd_form, a.conv_int8_form)
     rows = []
     for name in names:
         gen = torch.Generator().manual_seed(0)
         rows += (ab_dcn_bwd(*earlier[name], gen, a.dcn_bwd_form) if name == "dcn_bwd"
+                 else ab_conv_int8(earlier[name], gen, a.conv_int8_form) if name == "conv_int8"
                  else _AB[name](earlier[name], gen))
     dev_name = torch.cuda.get_device_name(0)
     for r in rows:
@@ -334,13 +355,13 @@ def _earlier_int8_weight(wq: torch.Tensor) -> torch.Tensor:
         co, k * k * cp).contiguous()
 
 
-def ab_conv_int8(earlier, gen) -> list:
+def ab_conv_int8(earlier, gen, form: str = "first") -> list:
     from configs import PPYOLO_2x_Config
 
     from ..eval.optimize import int8_conv_class, int8_conv_shapes
     from ..models import PPYOLO
-    from ..ops.conv_int8 import (dynamic_act_scale, pack_int8_weight, quantized_conv2d,
-                                 quantized_conv2d_plain)
+    from ..ops.conv_int8 import (dynamic_act_scale, k5_plan, pack_int8_weight,
+                                 quantized_conv2d, quantized_conv2d_plain, sm_count)
 
     dev, rows = torch.device("cuda"), []
     by_class = {}
@@ -351,13 +372,20 @@ def ab_conv_int8(earlier, gen) -> list:
         wq = torch.randint(-127, 128, (co, c, k, k), generator=gen, dtype=torch.int8).to(dev)
         ws = (torch.rand(co, generator=gen) * 1e-3 + 1e-4).to(dev)
         s_x = dynamic_act_scale(x) * 0.6      # static; clips the largest activations
-        packed, packed_earlier = pack_int8_weight(wq), _earlier_int8_weight(wq)
+        packed = pack_int8_weight(wq)
+        packed_earlier = packed if form == "tile" else _earlier_int8_weight(wq)
         oh, ow = (h - 1) // stride + 1, (w - 1) // stride + 1
         y = torch.empty(BATCH, co, oh, ow, dtype=x.dtype, device=dev,
                         memory_format=torch.channels_last)
         ptrs = [t.data_ptr() for t in (x, packed_earlier, ws, s_x)]
-        run_e = lambda: earlier(*ptrs, 0, y.data_ptr(), BATCH, h, w, c, co, k, stride, oh, ow,
-                                _stream())
+        if form == "tile":
+            p = k5_plan(BATCH, h, w, c, co, k, stride, sm_count(dev))
+            shape_args = (p.wg_m, p.m_tiles, p.tiles_per_block, p.planes[1], p.planes[2],
+                          p.a_slots, *p.grid, p.smem_bytes)
+        else:
+            shape_args = (oh, ow)
+        run_e = lambda: earlier(*ptrs, 0, y.data_ptr(), BATCH, h, w, c, co, k, stride,
+                                *shape_args, _stream())
         kw = dict(stride=stride, padding=(k - 1) // 2, act_scale=s_x)
         run_c = lambda: quantized_conv2d(x, wq, ws, packed=packed, **kw)
         with torch.no_grad():
@@ -384,8 +412,55 @@ def ab_conv_int8(earlier, gen) -> list:
     return rows
 
 
+def nms_candidates(gen, b: int, k: int, dev):
+    """K6's inputs as ``multiclass_nms`` gives them: valid [b, k] bool,
+    boxes [b, k, 4] fp32 xyxy and labels [b, k] int32 of k candidates in
+    score order; boxes in 24 clusters of a SIZE-px image (so suppressions
+    chain), 4 labels, 10% invalid."""
+    centres = torch.rand(b, 24, 2, generator=gen) * SIZE
+    pick = torch.randint(0, 24, (b, k), generator=gen)
+    xy = torch.gather(centres, 1, pick[..., None].expand(-1, -1, 2))
+    xy = xy + torch.randn(b, k, 2, generator=gen) * 6
+    wh = 20 + torch.rand(b, k, 2, generator=gen) * 60
+    boxes = torch.cat([xy - wh / 2, xy + wh / 2], -1)
+    labels = torch.randint(0, 4, (b, k), generator=gen, dtype=torch.int32)
+    valid = torch.rand(b, k, generator=gen) < 0.9
+    return valid.to(dev), boxes.to(dev), labels.to(dev)
+
+
+def earlier_nms_keep(earlier, valid, boxes, labels, thr: float = NMS_THR) -> torch.Tensor:
+    """K6's first form as ``multiclass_nms`` ran it: the [B, k, k] suppress
+    matrix built eagerly (``suppress_matrix``), then its launch."""
+    from ..ops.matrix_nms import suppress_matrix
+
+    sup = suppress_matrix(boxes, labels, thr)
+    keep = torch.empty_like(valid)
+    b, k = valid.shape
+    if earlier(valid.data_ptr(), sup.data_ptr(), keep.data_ptr(), b, k, _stream()) != 0:
+        raise RuntimeError("earlier nms_keep launch failed")
+    return keep
+
+
+def ab_nms_keep(earlier, gen) -> list:
+    from ..ops.matrix_nms import nms_keep, nms_keep_boxes_plain
+
+    rows = []
+    for b, k in NMS_SHAPES:
+        v, bx, lb = nms_candidates(gen, b, k, torch.device("cuda"))
+        run_e = lambda: earlier_nms_keep(earlier, v, bx, lb)
+        run_c = lambda: nms_keep(v, bx, lb, NMS_THR)
+        want = nms_keep_boxes_plain(v, bx, lb, NMS_THR)
+        for side, got in (("earlier", run_e()), ("current", run_c())):
+            if not torch.equal(got, want):
+                raise AssertionError(f"{side} nms_keep b{b} k{k}: keep flags differ from the "
+                                     f"plain version")
+        rows.append({**ab(f"nms_keep b{b} k{k}", run_e, run_c, graph_ms), "bit_equal": True,
+                     "kept": int(want.sum())})
+    return rows
+
+
 _AB = {"conv_s2": ab_conv_s2, "fused_stem": ab_fused_stem, "dcn_fwd": ab_dcn_fwd,
-       "conv_int8": ab_conv_int8}
+       "conv_int8": ab_conv_int8, "nms_keep": ab_nms_keep}
 
 
 if __name__ == "__main__":

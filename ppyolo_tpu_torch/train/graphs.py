@@ -45,6 +45,13 @@ checks only its own thread's CUDA calls (``capture_error_mode=
 "thread_local"``): NCCL's watchdog thread polls events of the warm-up
 run's collectives while the capture runs.
 
+torch.profiler tears CUPTI down at the end of each session and sets it up
+again at the next; while CUDA graphs exist, a later set-up crashes the next
+replay in the host or loses kernel records from the trace (torch's own
+profiler turns the teardown off when inductor captures graphs,
+``torch/profiler/profiler.py``).  A ``Graphs`` on a card turns it off the
+same way, for the process (``keep_cupti_set_up``).
+
 All graphs of one ``Graphs`` (and of those made with the same ``pool``)
 share one memory pool: only one of them runs at a time, so they can share
 their temporaries, and the pool peaks at the largest unit instead of the
@@ -54,6 +61,7 @@ replay of any graph in the pool; read (or copy) them before that.
 from __future__ import annotations
 
 import gc
+import os
 import time
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
@@ -66,6 +74,13 @@ from ..parallel import dist
 
 WARMUP_ITERS = 1
 Inputs = Dict[str, Any]   # name -> tensor, or a tuple of tensors
+
+
+def keep_cupti_set_up() -> None:
+    """Keep CUPTI set up from one torch.profiler session to the next (the
+    variables torch's profiler sets for graphs captured by inductor)."""
+    os.environ["DISABLE_CUPTI_LAZY_REINIT"] = "1"
+    os.environ["TEARDOWN_CUPTI"] = "0"
 
 
 def _flat(inputs: Inputs):
@@ -125,6 +140,7 @@ class Graphs:
         self._watched = [] if model is None else list(model.state_dict(keep_vars=True).values())
         self._versions = None
         if self.captures_graphs:
+            keep_cupti_set_up()
             self.pool = torch.cuda.graph_pool_handle() if pool is None else pool
             self.stream = torch.cuda.Stream(self.device)
 
@@ -201,6 +217,17 @@ class Graphs:
         for fn, n in recorded.items():
             fn.launches += n
         return out
+
+    def release(self) -> None:
+        """Free every captured graph, its static inputs and its outputs,
+        after the work queued on the graphs' and the caller's streams is
+        done.  The blocks go back to the shared pool, where the next capture
+        in it reuses them; later calls capture anew."""
+        if self.captures_graphs and self.graphs:
+            torch.cuda.current_stream(self.device).synchronize()
+            self.stream.synchronize()
+        self.graphs.clear()
+        self.captures.clear()
 
     def _refresh_caches(self) -> None:
         if self.model is None:

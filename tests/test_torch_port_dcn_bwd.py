@@ -185,12 +185,12 @@ def _extern_c(name):
 
 
 @pytest.mark.parametrize("name,nargs", [("dcn_fwd", 0), ("dcn_bwd", 1), ("fused_stem", 0),
-                                        ("conv_s2", 0), ("conv_int8", 3)])
+                                        ("conv_s2", 0), ("conv_int8", 4)])
 def test_occupancy_exports_take_what_chip_smoke_passes(name, nargs):
     """Each library exports ``<name>*_blocks_per_sm``, which chip_smoke calls
     through ctypes with Python ints and no argtypes: only int parameters, as
     many as it passes (K3's names one of its two kernels; K5's takes its
-    plan's layout and shared memory).  The library
+    plan's layout, whether it streams C, and its shared memory).  The library
     exports nothing else besides its launch, and K3's the size of its dx
     pixels' bins (no parameters)."""
     fns = _extern_c(name)

@@ -544,6 +544,120 @@ def test_graph_capture_leaves_the_state_untouched():
 
 
 @pytest.mark.gpu
+def test_replays_outlive_destroyed_graphs_that_shared_their_generator():
+    """Four units captured on one state and one registered generator (DropBlock
+    draws from it): one step and two steps, each at 64 and at 96 px.  After
+    each is replayed once, two are destroyed (``del``, ``gc.collect()``,
+    ``empty_cache()``, then their freed memory written over), the other two
+    replay on, then one more is destroyed and the last replays: every unit's
+    losses, and the state and the generator at the end, bitwise equal to the
+    same units run eagerly from the same state and generator state.  Every
+    replay runs inside a torch.profiler session of its own (CUPTI set up and
+    torn down around it unless ``Graphs`` keeps it set up: the teardown made
+    such a replay crash, or lose kernel records, at full size), and each
+    session's trace holds the K1 and K3 launches the counters count."""
+    import gc
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from ppyolo_tpu_torch.ops.deform_conv_cuda import dcn_bwd, dcn_fwd
+    from ppyolo_tpu_torch.train.graphs import GraphedStep
+    from ppyolo_tpu_torch.train.train_step import make_multi_train_step
+
+    _cuda_or_skip()
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    cfg, _, eager, step_e, gen_e = _train_setup()
+    _, _, graphed, step_g, gen_g = _train_setup()
+    multi_e = make_multi_train_step(eager.model, cfg, n_steps=2, compute_dtype=torch.bfloat16)
+    multi_g = make_multi_train_step(graphed.model, cfg, n_steps=2, compute_dtype=torch.bfloat16)
+    units, inputs = {}, {}
+    for size in (64, 96):
+        one = _gpu_batch(60 + size, 2, size)
+        two = [_gpu_batch(61 + size + i, 2, size) for i in range(2)]
+        inputs[1, size] = one
+        inputs[2, size] = {k: torch.stack([b[k] for b in two]) for k in two[0]}
+        units[1, size] = GraphedStep(step_g, graphed, gen_g)
+        units[2, size] = GraphedStep(multi_g, graphed, gen_g, n_steps=2)
+    for key, unit in units.items():
+        unit.prepare(inputs[key])
+
+    def run(key):
+        _, want = (step_e if key[0] == 1 else multi_e)(eager, inputs[key], gen_e)
+        counts = (dcn_fwd.launches, dcn_bwd.launches)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _, got = units[key](graphed, inputs[key])
+            torch.cuda.synchronize()
+        traced = [sum(e.count for e in prof.key_averages() if name in e.key)
+                  for name in ("dcn_fwd_kernel", "dcn_bwd_kernel")]
+        assert traced == [dcn_fwd.launches - counts[0], dcn_bwd.launches - counts[1]], key
+        assert traced[0] > 0
+        for k, v in want.items():
+            assert torch.equal(got[k], v), (key, k)
+
+    for key in list(units):
+        run(key)
+    for key in ((1, 64), (2, 96)):
+        del units[key]
+    gc.collect()
+    torch.cuda.empty_cache()
+    junk = torch.full((1 << 26,), -1.0, device="cuda")     # over the freed blocks
+    for _ in range(2):
+        for key in list(units):
+            run(key)
+    del units[2, 64]
+    gc.collect()
+    torch.cuda.empty_cache()
+    junk.fill_(float("nan"))
+    for _ in range(2):
+        run((1, 96))
+    torch.cuda.synchronize()
+    assert graphed.step == eager.step
+    for k, v in eager.tensors().items():
+        assert torch.equal(graphed.tensors()[k], v), k
+    assert torch.equal(gen_g.get_state(), gen_e.get_state())
+
+
+@pytest.mark.gpu
+def test_int8_refreshes_free_the_graphs_they_replace():
+    """Ten int8 refreshes of a mini-2x Detector at 96 px, ``set_params``
+    (other weights each time) and ``calibrate`` in turn, a predict after
+    each: each refresh releases its graph and the next predict captures
+    anew in the same pool, reusing its blocks, so the memory reserved after
+    the tenth is no more than after the second; every predict bitwise equal
+    to the eager forward of those weights and scales."""
+    from ppyolo_tpu_torch.eval.detector import Detector
+    from ppyolo_tpu_torch.models import PPYOLO
+
+    _cuda_or_skip()
+    cfg = _mini2x_cfg()
+    sds = [PPYOLO.from_config(cfg).init_parameters(torch.Generator().manual_seed(s)).state_dict()
+           for s in range(5)]
+    det = Detector(PPYOLO.from_config(cfg), sds[0], cfg, target_size=96, precision="int8")
+    r = np.random.RandomState(7)
+    images = r.randint(0, 256, (2, 96, 96, 3)).astype(np.uint8)
+    sizes = np.array([[480, 640], [96, 96]], np.float32)
+    reserved, outs = [], []
+    for cycle in range(10):
+        if cycle % 2:
+            det.calibrate(images)
+        else:
+            det.set_params(sds[cycle // 2])
+        assert det._graphs == {}
+        got = det.predict_batch(images, sizes)
+        with torch.no_grad():
+            want = det.model.predict(det.normalize(torch.from_numpy(images).cuda()),
+                                     torch.from_numpy(sizes).cuda()).cpu().numpy()
+        np.testing.assert_array_equal(got, want)
+        outs.append(got)
+        torch.cuda.synchronize()
+        reserved.append(torch.cuda.memory_reserved())
+        assert list(det._graphs) == [1]
+    assert reserved[9] <= reserved[1], reserved
+    assert not hasattr(det, "_retired")
+    assert not np.array_equal(outs[0], outs[2])
+
+
+@pytest.mark.gpu
 def test_graphed_predicts_are_bitwise_eager_and_follow_set_params():
     """bf16 serving of mini-2x at 96 px: the graphed ``predict_batch`` (K1
     and K2 inside) equals the eager forward; after ``set_params`` with other
@@ -756,7 +870,11 @@ def _int8_conv_inputs(seed, n, h, w, c, co, k, dev):
                                    (8, 76, 76, 256, 256, 3, 2), (2, 45, 38, 96, 1024, 3, 1),
                                    (8, 19, 19, 514, 1024, 3, 1), (8, 19, 19, 512, 2048, 1, 1),
                                    (8, 19, 19, 2050, 512, 1, 1), (2, 76, 45, 130, 200, 3, 1),
-                                   (1, 38, 19, 258, 512, 3, 2), (8, 38, 38, 1282, 256, 1, 1)])
+                                   (1, 38, 19, 258, 512, 3, 2), (8, 38, 38, 1282, 256, 1, 1),
+                                   (8, 19, 19, 4096, 512, 1, 1), (8, 19, 19, 2048, 512, 3, 1),
+                                   (8, 38, 38, 1024, 256, 3, 2), (2, 11, 7, 2306, 130, 1, 2),
+                                   (2, 11, 7, 130, 37, 1, 1), (1, 19, 19, 64, 255, 3, 1),
+                                   (2, 9, 9, 45, 23, 3, 2), (1, 9, 8, 1600, 129, 3, 1)])
 def test_int8_conv_kernel_is_bitwise_plain(shape, static, with_bias):
     """K5 bit-equal to ``quantized_conv2d_plain`` (the exact int8 sum, the
     JAX dequant order) at the edges of its tiles: H and W past the 16 x 8
@@ -765,7 +883,10 @@ def test_int8_conv_kernel_is_bitwise_plain(shape, static, with_bias):
     steps), 45 (odd: 2-byte loads), 136, ragged pixel and Co tails (Co 18,
     200), Co past one 128 or 256 column block (1024), the Co split the plan
     picks at M = 2888 (19x19, b8), both warpgroup layouts, stride 2 for 1x1
-    and 3x3, with and without a bias, dynamic and static scales."""
+    and 3x3, with and without a bias, dynamic and static scales; C past a
+    resident A tile (streamed in chunks: a 1x1 with C 4096, a 3x3 with C
+    2048 at 19x19 b8, a 3x3 s2 with C 1024, C 2306 and 1600 with a short last
+    chunk) and odd Co (37, 255, 23, 129)."""
     from ppyolo_tpu_torch.ops.conv_int8 import (dynamic_act_scale, quantized_conv2d,
                                                 quantized_conv2d_plain)
 
@@ -830,31 +951,115 @@ def test_int8_conv_kernel_refuses_what_it_does_not_take():
     with pytest.raises(ValueError, match="packed"):
         quantized_conv2d(x, wq, ws, stride=1, padding=1,
                          packed=pack_int8_weight(wq)[:, :-16].contiguous())
-    with pytest.raises(ValueError, match="even Co"):
-        quantized_conv2d(x, wq[:23], ws[:23], stride=1, padding=1)
+    with pytest.raises(ValueError, match="not supported"):
+        quantized_conv2d(x, wq, ws, stride=3, padding=1)
+
+
+NMS_THR = 0.45
+
+
+def k6_iou(a, b):
+    """pairwise_iou(a, b, eps=1e-9) of row-paired fp32 boxes [..., 4] in numpy,
+    every op rounded to fp32 on its own, in ``ops/iou.py``'s order (K6's IoU);
+    also returns the rounded area sum and the unclamped-then-clamped w, h."""
+    f32 = np.float32
+    w = np.minimum(a[..., 2], b[..., 2]) - np.maximum(a[..., 0], b[..., 0])
+    h = np.minimum(a[..., 3], b[..., 3]) - np.maximum(a[..., 1], b[..., 1])
+    w, h = np.where(w < 0, f32(0), w), np.where(h < 0, f32(0), h)
+    inter = w * h
+    areas = (a[..., 2] - a[..., 0]) * (a[..., 3] - a[..., 1]) + \
+        (b[..., 2] - b[..., 0]) * (b[..., 3] - b[..., 1])
+    return inter / ((areas - inter) + f32(1e-9)), (inter, areas, w, h)
+
+
+def k6_iou_contracted(a, b):
+    """``k6_iou`` as nvcc would compile it by default: the union's
+    ``areas - w * h`` as one FMA (the product exact, one rounding; exact in
+    fp64 for these magnitudes, then rounded once to fp32)."""
+    _, (inter, areas, w, h) = k6_iou(a, b)
+    union = (areas.astype(np.float64) - w.astype(np.float64) * h.astype(np.float64))
+    return inter / (union.astype(np.float32) + np.float32(1e-9))
+
+
+def k6_edge_pairs(seed, n, thr=NMS_THR):
+    """Up to n pairs of fp32 boxes (a [m, 4], b [m, 4]) in a 608-px image
+    whose IoU rounds to float32(thr) or to one of its two neighbours, the
+    pairs where an FMA-contracted union flips the ``> thr`` decision first:
+    b is a shifted by the offset that solves IoU = thr, stepped by ulps."""
+    f32 = np.float32
+    r = np.random.RandomState(seed)
+    m, steps = 2000, np.arange(-64, 65)
+    x0, y0 = (r.uniform(0, 400, (2, m))).astype(f32)
+    wd, ht = (r.uniform(20, 200, (2, m))).astype(f32)
+    a = np.stack([x0, y0, x0 + wd, y0 + ht], -1).astype(f32)
+    bx = (x0 + (wd * (1 - thr) / (1 + thr)).astype(f32))[:, None]
+    bx = (bx + steps[None, :] * np.spacing(bx)).astype(f32)
+    ones = np.ones_like(bx)
+    b = np.stack([bx, y0[:, None] * ones, (bx + wd[:, None]).astype(f32),
+                  (y0 + ht)[:, None] * ones], -1).astype(f32)
+    a = np.broadcast_to(a[:, None, :], b.shape).reshape(-1, 4)
+    b = b.reshape(-1, 4)
+    t = f32(thr)
+    rn, fm = k6_iou(a, b)[0], k6_iou_contracted(a, b)
+    edge = (rn == t) | (rn == np.nextafter(t, f32(0))) | (rn == np.nextafter(t, f32(1)))
+    flips = (rn > t) != (fm > t)
+    order = np.argsort(~(edge & flips), kind="stable")
+    pick = order[:n][edge[order[:n]]]
+    return a[pick], b[pick]
+
+
+def k6_clustered(seed, b, k):
+    """valid [b, k], boxes [b, k, 4] fp32 and labels [b, k] int32 of k
+    candidates in score order, as ``multiclass_nms`` gives them to K6: boxes
+    in 24 clusters (suppressions chain), 4 labels, 10% invalid."""
+    r = np.random.RandomState(seed)
+    centres = r.rand(b, 24, 2) * 608
+    xy = np.take_along_axis(centres, r.randint(0, 24, (b, k, 1)), 1) + r.randn(b, k, 2) * 6
+    wh = 20 + r.rand(b, k, 2) * 60
+    boxes = np.concatenate([xy - wh / 2, xy + wh / 2], -1).astype(np.float32)
+    return r.rand(b, k) < 0.9, boxes, r.randint(0, 4, (b, k)).astype(np.int32)
+
+
+def k6_edge_case(seed, b, k):
+    """valid, boxes, labels of b images of k candidates made of threshold-edge
+    pairs (``k6_edge_pairs``), each pair its own label: candidate 2m + 1 is
+    kept exactly when its pair's IoU is not above the threshold."""
+    pa, pb = k6_edge_pairs(seed, b * ((k + 1) // 2))
+    n = (k + 1) // 2
+    boxes = np.stack([pa, pb], 1).reshape(-1, 4)
+    reps = -(-b * 2 * n // len(boxes))
+    boxes = np.tile(boxes, (reps, 1))[:b * 2 * n].reshape(b, 2 * n, 4)[:, :k]
+    labels = np.broadcast_to(np.arange(2 * n)[None, :] // 2, (b, 2 * n))[:, :k]
+    return np.ones((b, k), bool), np.ascontiguousarray(boxes), labels.astype(np.int32)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,k", [(8, 500), (3, 97), (2, 1024), (1, 1)])
-def test_nms_keep_kernel_is_bitwise_plain(b, k):
-    """K6 equal to the fixpoint iteration on seeded valid masks and
-    strictly upper-triangular suppress matrices, dense and sparse."""
-    from ppyolo_tpu_torch.ops.matrix_nms import nms_keep, nms_keep_plain
+@pytest.mark.parametrize("case", ["clustered", "edge"])
+@pytest.mark.parametrize("b,k", [(8, 500), (3, 97), (2, 1024), (1, 1), (2, 32), (2, 33),
+                                 (2, 1025), (1, 4096), (1, 8000)])
+def test_nms_keep_kernel_is_bitwise_plain(b, k, case):
+    """K6, from the candidates' boxes, equal to its plain version (the eager
+    suppress matrix and the fixpoint) at k within one chunk, on a chunk
+    edge (32, 33), past the first form's cap of 1024, and past shared
+    memory (8000: the global scratch path), on clustered boxes and on pairs
+    at the threshold's rounding edge, where an FMA-contracted IoU decides
+    otherwise."""
+    from ppyolo_tpu_torch.ops.matrix_nms import nms_keep, nms_keep_boxes_plain
 
     dev = _cuda_or_skip()
-    g = torch.Generator().manual_seed(b * 1000 + k)
-    valid = torch.rand(b, k, generator=g) < 0.9
-    density = torch.rand(b, 1, 1, generator=g) * 0.05
-    tri = torch.triu(torch.ones(k, k, dtype=torch.bool), 1)
-    sup = (torch.rand(b, k, k, generator=g) < density) & tri
+    valid, boxes, labels = (k6_clustered if case == "clustered" else k6_edge_case)(
+        b * 1000 + k, b, k)
+    args = [torch.from_numpy(np.ascontiguousarray(t)).to(dev) for t in (valid, boxes, labels)]
     before = nms_keep.launches
-    got = nms_keep(valid.to(dev), sup.to(dev))
+    got = nms_keep(*args, NMS_THR)
     torch.cuda.synchronize()
     assert nms_keep.launches == before + 1
-    assert torch.equal(got.cpu(), nms_keep_plain(valid, sup))
-    with pytest.raises(ValueError, match="k <="):
-        nms_keep(torch.ones(1, 1025, dtype=torch.bool, device=dev),
-                 torch.zeros(1, 1025, 1025, dtype=torch.bool, device=dev))
+    want = nms_keep_boxes_plain(*args, NMS_THR)
+    assert torch.equal(got, want), int((got != want).sum())
+    if case == "edge" and k > 1:
+        assert 0 < int(got.sum()) < b * k     # some pairs suppress, some do not
+    with pytest.raises(ValueError, match="fp32 boxes"):
+        nms_keep(args[0], args[1].double(), args[2], NMS_THR)
 
 
 @pytest.mark.gpu
@@ -913,7 +1118,7 @@ def test_int8_detector_graphed_is_bitwise_eager(nms_type):
             assert (got[..., 0] >= 0).any()
             np.testing.assert_array_equal(got, want)
             outs.append(got)
-        assert len(det._retired) == 2 and list(det._graphs) == [1]
+        assert not hasattr(det, "_retired") and list(det._graphs) == [1]
         assert not np.array_equal(outs[0], outs[2])
         assert plain_calls == []
     finally:

@@ -18,8 +18,12 @@ Same seeded numpy inputs through both packages:
 * the JAX int8 tree through the bridge both ways, bitwise;
 * ``Detector(precision="int8")`` with ``calibrate`` and ``set_params``, its
   scales fp32 through ``Module.to``;
-* ``multiclass_nms`` bitwise JAX's (ties, a negative threshold) and the
-  greedy oracle of ``tests/test_ops.py``.
+* ``multiclass_nms`` bitwise JAX's (ties, a negative threshold, k past 1024)
+  and the greedy oracle of ``tests/test_ops.py``;
+* K6's arithmetic in numpy: its IoU, one fp32 op rounded at a time, bitwise
+  ``pairwise_iou`` (also at the threshold's rounding edge, where an
+  FMA-contracted form decides otherwise), and its chunked walk equal to the
+  fixpoint.
 """
 import ctypes
 import re
@@ -49,7 +53,9 @@ from ppyolo_tpu_torch.ops.conv import ConvNormAct, match_int8_form
 from ppyolo_tpu_torch.ops.conv_int8 import (dynamic_act_scale, pack_int8_weight,
                                             quantize_act, quantized_conv2d,
                                             quantized_conv2d_plain)
+from ppyolo_tpu_torch.ops.iou import pairwise_iou
 
+from test_torch_port_gpu import k6_clustered, k6_edge_pairs, k6_iou, k6_iou_contracted
 from test_torch_port_train import mini2x_cfg
 
 REPO = Path(__file__).resolve().parent.parent
@@ -233,11 +239,13 @@ def test_pack_int8_weight_layout():
     ("nms_keep", "nms_keep_launch", matrix_nms._KEEP_ARGTYPES)])
 def test_launch_argtypes_match_the_c_signatures(name, fn, argtypes):
     """ctypes checks nothing: each wrapper's argtypes follow its extern "C"
-    signature (a pointer per pointer, an int per int)."""
+    signature (a pointer per pointer, an int per int, a float per float)."""
     src = (REPO / "ppyolo_tpu_torch" / "csrc" / f"{name}.cu").read_text()
     sig = re.search(r'extern "C" int %s\((.*?)\)' % fn, src, re.S).group(1)
-    assert all("*" in p or p.split()[0] == "int" for p in sig.split(","))
-    assert argtypes == [ctypes.c_void_p if "*" in p else ctypes.c_int for p in sig.split(",")]
+    scalar = {"int": ctypes.c_int, "float": ctypes.c_float}
+    assert all("*" in p or p.split()[0] in scalar for p in sig.split(","))
+    assert argtypes == [ctypes.c_void_p if "*" in p else scalar[p.split()[0]]
+                        for p in sig.split(",")]
 
 
 # ---------------------------------------------------------------- the int8 model
@@ -393,9 +401,13 @@ def _nms_inputs(seed, b, a, c, ties, negative):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("ties,negative,top", [(False, False, 60), (True, False, 60),
-                                               (True, True, 60), (False, False, 500)])
+                                               (True, True, 60), (False, False, 500),
+                                               (False, False, 1500)])
 def test_multiclass_nms_is_bitwise_jax(ties, negative, top, dtype):
-    boxes, scores = _nms_inputs(int(ties) + 2 * int(negative) + top, 3, 70, 4, ties, negative)
+    """Past nms_top_k = 1024 too (400 anchors x 4 classes: k = 1500)."""
+    anchors = 400 if top > 1024 else 70
+    boxes, scores = _nms_inputs(int(ties) + 2 * int(negative) + top, 3, anchors, 4, ties,
+                                negative)
     cfg = dict(score_threshold=-0.5 if negative else 0.1, nms_threshold=0.45,
                nms_top_k=top, keep_top_k=30, nms_type="multiclass_nms")
     sj = jnp.asarray(scores, getattr(jnp, dtype))
@@ -449,21 +461,166 @@ def test_multiclass_nms_matches_the_greedy_oracle():
 
 
 def test_nms_keep_plain_is_the_sequential_greedy_walk():
+    """The fixpoint ``nms_keep_plain`` on a random suppress matrix, and
+    ``nms_keep`` on boxes (its plain version on the CPU), equal the
+    sequential greedy walk."""
     r = np.random.RandomState(12)
     b, k = 3, 90
     valid = torch.from_numpy(r.rand(b, k) < 0.8)
     sup = torch.from_numpy(r.rand(b, k, k) < 0.08) & torch.triu(torch.ones(k, k, dtype=bool), 1)
-    got = matrix_nms.nms_keep(valid, sup)
-    for i in range(b):
-        removed = np.zeros(k, bool)
-        keep = np.zeros(k, bool)
-        for j in range(k):
-            keep[j] = bool(valid[i, j]) and not removed[j]
-            if keep[j]:
-                removed |= sup[i, j].numpy()
-        np.testing.assert_array_equal(got[i].numpy(), keep)
+    v, boxes, labels = k6_clustered(12, b, k)
+    v = torch.from_numpy(v)
+    box_sup = matrix_nms.suppress_matrix(torch.from_numpy(boxes), torch.from_numpy(labels), 0.45)
+    for fn, vb, sb in ((lambda: matrix_nms.nms_keep_plain(valid, sup), valid, sup),
+                       (lambda: matrix_nms.nms_keep(v, torch.from_numpy(boxes),
+                                                    torch.from_numpy(labels), 0.45), v, box_sup)):
+        got = fn()
+        for i in range(b):
+            removed = np.zeros(k, bool)
+            keep = np.zeros(k, bool)
+            for j in range(k):
+                keep[j] = bool(vb[i, j]) and not removed[j]
+                if keep[j]:
+                    removed |= sb[i, j].numpy()
+            np.testing.assert_array_equal(got[i].numpy(), keep)
+    assert box_sup.any()
     with pytest.raises(ValueError):
-        matrix_nms.nms_keep(valid, sup[:, :, :5])
+        matrix_nms.nms_keep(v, torch.from_numpy(boxes)[:, :5], torch.from_numpy(labels), 0.45)
+
+
+def test_k6_iou_emulation_is_bitwise_pairwise_iou():
+    """K6's IoU, one fp32 op rounded at a time in ``ops/iou.py``'s order
+    (``k6_iou``), equals ``pairwise_iou(eps=1e-9)`` bit for bit on random
+    boxes (disjoint, nested, degenerate, zero-area) and on pairs whose IoU
+    rounds to float32(0.45) and to its two neighbours; an FMA-contracted
+    union (nvcc's default) decides ``> 0.45`` otherwise on some of them."""
+    r = np.random.RandomState(5)
+    xy = r.rand(4000, 2) * 600
+    wh = np.where(r.rand(4000, 2) < 0.05, 0.0, r.rand(4000, 2) * 120)
+    boxes = np.concatenate([xy, xy + wh], -1).astype(np.float32)
+    a, b = boxes[:2000], boxes[2000:]
+    b[:500] = a[:500] + (r.randn(500, 4) * 4).astype(np.float32)    # overlapping pairs
+    ea, eb = k6_edge_pairs(0, 400)
+    a, b = np.concatenate([a, ea]), np.concatenate([b, eb])
+    want = pairwise_iou(torch.from_numpy(a)[:, None], torch.from_numpy(b)[:, None],
+                        eps=1e-9)[:, 0, 0].numpy()
+    got = k6_iou(a, b)[0]
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    t = np.float32(0.45)
+    edge = got[-len(ea):]
+    for v in (np.nextafter(t, np.float32(0)), t, np.nextafter(t, np.float32(1))):
+        assert (edge == v).sum() > 10
+    fused = k6_iou_contracted(a, b)
+    assert ((fused > t) != (got > t)).sum() > 10 and ((got > 0.1) & (got < 0.9)).sum() > 300
+
+
+def k6_decides(a, b, thr):
+    """K6's decision ``may_suppress and iou_above`` for row-paired boxes of
+    one label, in numpy as the kernel computes it: min, max and the clamp
+    drop a NaN (``np.fmin`` and ``np.fmax``, where torch's keep it); for
+    t >= 0 no IoU unless the boxes overlap by a positive area; every other
+    op rounded to fp32 on its own in ``ops/iou.py``'s order, the quotient
+    compared with t."""
+    f32 = np.float32
+    t = f32(thr)
+    lo_x, hi_x = np.fmax(a[:, 0], b[:, 0]), np.fmin(a[:, 2], b[:, 2])
+    lo_y, hi_y = np.fmax(a[:, 1], b[:, 1]), np.fmin(a[:, 3], b[:, 3])
+    inter = np.fmax(hi_x - lo_x, f32(0)) * np.fmax(hi_y - lo_y, f32(0))
+    areas = (a[:, 2] - a[:, 0]) * (a[:, 3] - a[:, 1]) + (b[:, 2] - b[:, 0]) * (b[:, 3] - b[:, 1])
+    above = inter / ((areas - inter) + f32(1e-9)) > t
+    return above & ((t < 0) | ((hi_x > lo_x) & (hi_y > lo_y)))
+
+
+def test_k6_decision_is_torchs_also_on_nan_and_inf():
+    """K6's decision (``k6_decides``: NaN-dropping min and max, the overlap
+    cull) equals
+    torch's ``pairwise_iou(eps=1e-9) > t`` (``k6_iou``, every op as torch
+    rounds it) on random, degenerate (zero-area, inverted, NaN, inf) and
+    threshold-edge pairs, at thresholds across the range (0.45 and its
+    neighbours, 0, negative, subnormal, 1, the largest float)."""
+    r = np.random.RandomState(8)
+    xy = r.rand(3000, 2) * 600
+    wh = np.where(r.rand(3000, 2) < 0.1, 0.0, r.rand(3000, 2) * 120)
+    wh[r.rand(3000) < 0.05] *= -1                                  # inverted boxes
+    boxes = np.concatenate([xy, xy + wh], -1).astype(np.float32)
+    boxes[r.rand(3000) < 0.01, 0] = np.nan
+    boxes[r.rand(3000) < 0.01, 2] = np.inf
+    boxes[r.rand(3000) < 0.01, 1] = -np.inf
+    a, b = boxes[:1500], boxes[1500:]
+    b[:600] = a[:600] + (r.randn(600, 4) * 3).astype(np.float32)
+    b[600:650] = a[600:650]                                        # NaN / inf on both sides
+    ea, eb = k6_edge_pairs(1, 300)
+    a, b = np.concatenate([a, ea]), np.concatenate([b, eb])
+    t45 = np.float32(0.45)
+    with np.errstate(invalid="ignore", over="ignore"):
+        for thr in (t45, np.nextafter(t45, np.float32(0)), np.nextafter(t45, np.float32(1)),
+                    np.float32(0.5), np.float32(0.0), np.float32(-0.0), np.float32(-0.25),
+                    np.float32(1e-40), np.float32(1.0), np.finfo(np.float32).max):
+            want = k6_iou(a, b)[0] > np.float32(thr)
+            np.testing.assert_array_equal(k6_decides(a, b, thr), want, err_msg=str(thr))
+        assert 100 < (k6_iou(a, b)[0] > t45).sum() < len(a) - 100
+        assert np.isnan(k6_iou(a, b)[0]).sum() > 20
+
+
+def k6_walk(valid, sup):
+    """``csrc/nms_keep.cu``'s walk in numpy for one image: valid [k] bool,
+    sup [k, k] bool (j suppresses i).  Chunks of 32; each candidate's
+    masks of its own chunk's earlier suppressors and of the previous
+    chunk's; round r resolves chunk r (alive: valid, not removed, not hit
+    by chunk r-1's kept; then the lane walk) while the chunks after it take
+    chunk r-1's kept into their removed words."""
+    k = len(valid)
+    words = -(-k // 32)
+    vp = np.zeros(32 * words, bool)
+    vp[:k] = valid
+    sp = np.zeros((32 * words, 32 * words), bool)
+    sp[:k, :k] = sup
+    bits = 1 << np.arange(32, dtype=np.uint64)
+    diag = np.zeros(32 * words, np.uint64)
+    prev = np.zeros(32 * words, np.uint64)
+    for i in range(k):
+        if not vp[i]:
+            continue
+        c, lane = divmod(i, 32)
+        js = np.arange(32 * c, i)
+        diag[i] = (bits[:lane] * (vp[js] & sp[js, i])).sum()
+        if c:
+            js = np.arange(32 * (c - 1), 32 * c)
+            prev[i] = (bits * (vp[js] & sp[js, i])).sum()
+    removed = np.zeros(words, np.uint64)
+    kept = np.zeros(words, np.uint64)
+    keep = np.zeros(32 * words, bool)
+    for rnd in range(words):
+        kp = kept[rnd - 1] if rnd else np.uint64(0)
+        lanes = np.arange(32 * rnd, 32 * rnd + 32)
+        alive = vp[lanes] & ((removed[rnd] & bits) == 0) & ((prev[lanes] & kp) == 0)
+        kb = np.uint64(0)
+        for lane in range(32):
+            if alive[lane] and not (diag[lanes[lane]] & kb):
+                kb |= bits[lane]
+        kept[rnd] = kb
+        keep[lanes] = (kb & bits) != 0
+        if kp:
+            js = 32 * (rnd - 1) + np.nonzero(kp & bits)[0]
+            for w in range(rnd + 1, words):
+                lanes_w = np.arange(32 * w, 32 * w + 32)
+                live = vp[lanes_w] & ((removed[w] & bits) == 0)
+                hit = live & sp[np.ix_(js, lanes_w)].any(0)
+                removed[w] |= (bits * hit).sum().astype(np.uint64)
+    return keep[:k]
+
+
+@pytest.mark.parametrize("k", [1, 31, 32, 33, 500, 1500])
+def test_k6_chunked_walk_is_the_fixpoint(k):
+    """The kernel's chunked walk (``k6_walk``) equals ``nms_keep_plain`` on
+    clustered candidates (suppressions chain within and across chunks)."""
+    valid, boxes, labels = k6_clustered(k, 2, k)
+    sup = matrix_nms.suppress_matrix(torch.from_numpy(boxes), torch.from_numpy(labels), 0.45)
+    want = matrix_nms.nms_keep_plain(torch.from_numpy(valid), sup).numpy()
+    for i in range(2):
+        np.testing.assert_array_equal(k6_walk(valid[i], sup[i].numpy()), want[i])
+    if k >= 500:
+        assert (want.sum(1) < valid.sum(1)).all() and want.sum() > 20
 
 
 def test_multiclass_head_predict_matches_jax():

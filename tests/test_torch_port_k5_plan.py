@@ -12,7 +12,9 @@ holds it bit-equal to the plain version there).  Here:
   splits for a 1x1; times the halo's overlap for a 3x3), summed a batch as
   ``PERF.md`` quotes them;
 * a plan for every int8 conv of every config at the sizes and batches its
-  entries serve, and ``K5_MAX_C``, the widest C a plan fits;
+  entries serve, all resident (the A tile holds all of C); ``K5_MAX_C``, the
+  widest C a resident plan fits, and past it the streamed plans (C through
+  the A tile in chunks); odd Co;
 * K5's quotient (a reciprocal multiply and one exact FMA correction)
   emulated in numpy gives ``quantize_act``'s int8 for every finite bf16
   bit pattern at scales across the dynamic range;
@@ -23,7 +25,8 @@ holds it bit-equal to the plain version there).  Here:
   a zero-filled B (its A bytes past the tile are garbage), and the
   epilogue's row table: the int32 sums equal the exact conv of the
   quantized activation, for 1x1 and 3x3, stride 1 and 2, ragged pixel and
-  Co tails, C tails 2 mod 8 and odd, both warpgroup layouts.
+  Co tails, C tails 2 mod 8 and odd, every warpgroup layout, C streamed in
+  chunks, odd Co.
 """
 import functools
 
@@ -138,8 +141,8 @@ def test_k5_plan_splits_co_only_to_fill_the_card():
     assert k5_plan(8, 76, 76, 512, 256, 1, 1).co_splits == 1
     assert k5_plan(8, 19, 19, 2050, 512, 1, 1).wg_m == 1
     assert _plan(8, 19, 19, 2050, 512, 1, 1, 2, 1, 4) is None     # 128 x 2080 bytes do not fit
-    with pytest.raises(ValueError, match="no plan"):
-        k5_plan(1, 8, 8, 8192, 64, 3, 1)
+    wide = k5_plan(1, 8, 8, 8192, 64, 3, 1)       # no resident plan fits: C streams
+    assert wide.streamed and not ci.k5_candidates(1, 8, 8, 8192, 64, 3, 1)
     # the splits follow the card's SMs: one SM gains nothing from a split
     assert k5_plan(8, 19, 19, 512, 2048, 1, 1, sms=1).co_splits == 1
     assert k5_plan(8, 19, 19, 512, 2048, 1, 1, sms=66).co_splits < p.co_splits
@@ -147,17 +150,55 @@ def test_k5_plan_splits_co_only_to_fill_the_card():
 
 @pytest.mark.parametrize("k,stride", sorted(K5_MAX_C))
 def test_k5_max_c_is_the_widest_c_a_plan_fits(k, stride):
+    """``K5_MAX_C`` is the resident/streamed boundary: at it a resident
+    plan (the A tile holds all of C), one channel past it none fits and the
+    plan streams C in chunks."""
     c = K5_MAX_C[k, stride]
-    assert k5_plan(8, 64, 64, c, 256, k, stride).smem_bytes <= SMEM_BLOCK_MAX
-    with pytest.raises(ValueError, match=f"C up to {c}"):
-        k5_plan(8, 64, 64, c + 1, 256, k, stride)
+    p = k5_plan(8, 64, 64, c, 256, k, stride)
+    assert p.smem_bytes <= SMEM_BLOCK_MAX and not p.streamed and p.c_chunk == p.cp
+    assert not ci.k5_candidates(8, 64, 64, c + 1, 256, k, stride)
+    q = k5_plan(8, 64, 64, c + 1, 256, k, stride)
+    assert q.streamed and q.smem_bytes <= SMEM_BLOCK_MAX and q.c_chunk % K5_KC == 0
+
+
+@pytest.mark.parametrize("shape", [(8, 19, 19, 4096, 512, 1, 1), (8, 19, 19, 2048, 512, 3, 1),
+                                   (8, 38, 38, 1024, 256, 3, 2), (8, 19, 19, 2300, 255, 1, 2),
+                                   (1, 8, 8, 8192, 64, 3, 1)])
+def test_k5_plan_streams_c_past_the_resident_tile(shape):
+    """Past ``K5_MAX_C`` the plan streams C: an A chunk of a multiple of
+    K5_KC channels below Cp that fits shared memory, one Co tile a block,
+    every output written once, each input element quantized once per Co
+    tile (times the halo's overlap for a 3x3)."""
+    n, h, w, c, co, k, stride = shape
+    p = k5_plan(*shape)
+    assert p.streamed and p.c_chunk % K5_KC == 0 and K5_KC <= p.c_chunk < p.cp
+    assert p.smem_bytes <= SMEM_BLOCK_MAX and p.tiles_per_block == 1
+    assert p.smem_bytes >= (-(-p.a_slots * p.c_chunk // 128) * 128 + K5_STAGES * p.bn * K5_KC
+                            + 16 * p.bn + 128)
+    rows, tiles = _coverage(p, n, h, w, co, k, stride)
+    assert (rows == 1).all() and (tiles == 1).all()
+    if k == 1:
+        assert p.quant_per_element == p.co_tiles
+    else:
+        assert 1.0 <= p.quant_per_element / p.co_tiles < 2.5
+
+
+@pytest.mark.parametrize("co", [1, 37, 255, 513])
+def test_k5_plan_takes_an_odd_co(co):
+    """An odd Co plans like the even Co above it: its last Co tile ragged."""
+    for k, stride in ((1, 1), (3, 1), (3, 2)):
+        p, q = k5_plan(8, 19, 19, 256, co, k, stride), k5_plan(8, 19, 19, 256, co + 1, k, stride)
+        assert (p.wg_m, p.m_tiles, p.co_tiles) == (q.wg_m, q.m_tiles, q.co_tiles)
+        rows, tiles = _coverage(p, 8, 19, 19, co, k, stride)
+        assert (rows == 1).all() and (tiles == 1).all()
 
 
 @pytest.mark.parametrize("index", sorted(CONFIGS))
 def test_every_config_plans_every_int8_conv_it_serves(index):
     """Every int8 conv of each config gets a plan at the sizes and batches
     its int8 entries serve (eval and test_dev at the eval size and batch,
-    the demo at the test size, batch 1), within ``K5_MAX_C``."""
+    the demo at the test size, batch 1), within ``K5_MAX_C``: a resident
+    plan, as before C could stream."""
     cfg = CONFIGS[index]()
     model = PPYOLO.from_config(cfg).eval()
     serves = {(cfg.eval_cfg["target_size"], cfg.eval_cfg["eval_batch_size"]),
@@ -169,6 +210,7 @@ def test_every_config_plans_every_int8_conv_it_serves(index):
             assert c <= K5_MAX_C[k, stride]
             p = k5_plan(batch, h, w, c, co, k, stride)
             assert p.smem_bytes <= SMEM_BLOCK_MAX and batch * h * w * max(c, co) < 2 ** 31
+            assert not p.streamed and p in ci.k5_candidates(batch, h, w, c, co, k, stride)
 
 
 # ---------------------------------------------------------------- the kernel's quotient
@@ -232,8 +274,10 @@ def emulate_k5(xq, wq, n, h, w, c, co, k, stride, plan, rng, operand=_operand):
     [co, c, k, k] int8.  Returns [n, oh, ow, co] int64 and how many times
     each output was written."""
     oh, ow = (h - 1) // stride + 1, (w - 1) // stride + 1
-    pad, cp = (k - 1) // 2, plan.cp
-    gpt, cpt, taps = cp // 16, -(-cp // K5_KC), k * k
+    pad, cp, cc = (k - 1) // 2, plan.cp, plan.c_chunk
+    gpt, taps = cp // 16, k * k
+    # the A chunks: (first channel, 16-byte groups) of each; one where resident
+    chunks = [(c0, min(cc, cp - c0) // 16) for c0 in range(0, cp, cc)]
     packed = pack_int8_weight(torch.from_numpy(wq)).numpy()      # [taps * gpt, co, 16]
     _, ph_, pw_ = plan.planes
     bm, bn, wg_m, mts, a_slots = plan.bm, plan.bn, plan.wg_m, plan.m_tiles, plan.a_slots
@@ -275,48 +319,62 @@ def emulate_k5(xq, wq, n, h, w, c, co, k, stride, plan, rng, operand=_operand):
             elif bx * bm + r < n * oh * ow:
                 out_tab[r] = bx * bm + r
         # shared memory: the A tile, then bytes the kernel does not own here
-        # (the ring): the phantom step reads them, times a zero B
+        # (the ring): the phantom step reads them (or a streamed tile's groups
+        # past its chunk, left from the chunk before), times a zero B
         smem = rng.randint(-128, 128, plan.smem_bytes).astype(np.int64)
-        for item in range(a_slots * gpt):
-            gq, s = divmod(item, a_slots)
-            row = np.zeros(16, np.int64)
-            if in_tab[s] >= 0 and 16 * gq < c:
-                vals = flat_x[in_tab[s], 16 * gq:16 * gq + 16]
-                row[:len(vals)] = vals
-            smem[item * 16:item * 16 + 16] = row
+
+        def fill(c0, groups):   # the A tile: groups of channels c0 + 16 gq ..
+            for item in range(a_slots * groups):
+                gq, s = divmod(item, a_slots)
+                row = np.zeros(16, np.int64)
+                if in_tab[s] >= 0 and c0 + 16 * gq < c:
+                    vals = flat_x[in_tab[s], c0 + 16 * gq:c0 + 16 * gq + 16]
+                    row[:len(vals)] = vals
+                smem[item * 16:item * 16 + 16] = row
+
+        if len(chunks) == 1:
+            fill(0, gpt)
         a_lbo, a_sbo = a_slots * 16, (pw_ * 16 if k == 3 else 128)
         for by in range(plan.grid[1]):
             t0 = by * plan.tiles_per_block
             for tile in range(t0, min(t0 + plan.tiles_per_block, plan.co_tiles)):
                 n0 = tile * bn
+                acc = np.zeros((2, mts, 64, 128), np.int64)
+                for c0, groups in chunks:
+                    if len(chunks) > 1:
+                        fill(c0, groups)
+                    for wg in range(2):
+                      wm, wn = (wg, 0) if wg_m == 2 else (0, wg)
+                      for mt in range(mts):
+                        m = wm * mts + mt
+                        a_row0 = ((m // mts) * 8 * pw_ + (m % mts) * 8 if k == 3 else m * 64) * 16
+                        for tap in range(taps):
+                            for ci in range(-(-groups * 16 // K5_KC)):
+                                stage = np.zeros(bn * K5_KC, np.int64)   # groups 4ci.. of the chunk
+                                for q in range(4):
+                                    gq = 4 * ci + q
+                                    if gq < groups:
+                                        rows = packed[tap * gpt + c0 // 16 + gq, n0:n0 + bn]
+                                        stage[q * bn * 16:q * bn * 16 + rows.size] = \
+                                            rows.reshape(-1)
+                                for st in range(2):
+                                    j = 2 * ci + st
+                                    a = operand(smem, a_row0 + tap_slots(tap) * 16 + 2 * j * a_lbo,
+                                                a_lbo, a_sbo, 64)
+                                    bmat = operand(stage, wn * 128 * 16 + 2 * st * bn * 16,
+                                                   bn * 16, 128, 128)
+                                    acc[wg, mt] += a @ bmat.T
                 for wg in range(2):
-                  wm, wn = (wg, 0) if wg_m == 2 else (0, wg)
-                  for mt in range(mts):
-                    m = wm * mts + mt
-                    a_row0 = ((m // mts) * 8 * pw_ + (m % mts) * 8 if k == 3 else m * 64) * 16
-                    acc = np.zeros((64, 128), np.int64)
-                    for tap in range(taps):
-                        for cc in range(cpt):
-                            stage = np.zeros(bn * K5_KC, np.int64)   # groups 4cc.. of the tap
-                            for q in range(4):
-                                gq = 4 * cc + q
-                                if gq < gpt:
-                                    rows = packed[tap * gpt + gq, n0:n0 + bn]
-                                    stage[q * bn * 16:q * bn * 16 + rows.size] = rows.reshape(-1)
-                            for st in range(2):
-                                j = 2 * cc + st
-                                a = operand(smem, a_row0 + tap_slots(tap) * 16 + 2 * j * a_lbo,
-                                            a_lbo, a_sbo, 64)
-                                bmat = operand(stage, wn * 128 * 16 + 2 * st * bn * 16,
-                                               bn * 16, 128, 128)
-                                acc += a @ bmat.T
-                    for r in range(64):
-                        pix = out_tab[m * 64 + r]
-                        cols = np.arange(n0 + wn * 128, n0 + wn * 128 + 128)
-                        keep = cols < co
-                        if pix >= 0:
-                            out[pix, cols[keep]] = acc[r, keep]
-                            written[pix, cols[keep]] += 1
+                    wm, wn = (wg, 0) if wg_m == 2 else (0, wg)
+                    for mt in range(mts):
+                        m = wm * mts + mt
+                        for r in range(64):
+                            pix = out_tab[m * 64 + r]
+                            cols = np.arange(n0 + wn * 128, n0 + wn * 128 + 128)
+                            keep = cols < co
+                            if pix >= 0:
+                                out[pix, cols[keep]] = acc[wg, mt, r, keep]
+                                written[pix, cols[keep]] += 1
     return out.reshape(n, oh, ow, co), written
 
 
@@ -337,6 +395,29 @@ def test_kernel_addressing_computes_the_conv(shape, layout, tpb):
     xq = rng.randint(-127, 128, (n, h, w, c)).astype(np.int8)
     wq = rng.randint(-127, 128, (co, c, k, k)).astype(np.int8)
     plan = _plan(n, h, w, c, co, k, stride, *layout, tpb)
+    got, written = emulate_k5(xq, wq, n, h, w, c, co, k, stride, plan, rng)
+    want = F.conv2d(torch.from_numpy(xq).permute(0, 3, 1, 2).double(),
+                    torch.from_numpy(wq).double(), stride=stride, padding=(k - 1) // 2)
+    assert (written == 1).all()
+    np.testing.assert_array_equal(got, want.permute(0, 2, 3, 1).numpy().astype(np.int64))
+
+
+@pytest.mark.parametrize("shape,layout,chunk,tpb", [
+    ((1, 9, 10, 200, 72, 1, 1), (2, 1), 64, 1), ((2, 7, 6, 290, 37, 1, 2), (1, 1), 128, 2),
+    ((1, 11, 9, 130, 40, 3, 1), (2, 1), 64, 1), ((1, 13, 12, 100, 23, 3, 2), (2, 2), 64, 1),
+    ((1, 12, 10, 250, 300, 3, 1), (1, 1), 128, 1), ((1, 10, 9, 45, 129, 3, 1), (2, 1), None, 2),
+])
+def test_streamed_and_odd_co_addressing_computes_the_conv(shape, layout, chunk, tpb):
+    """The emulated kernel with C streamed through the A tile in chunks
+    (the last chunk's odd k32 step reading groups the chunk before left in
+    the tile, times a zero B) and with odd Co: every output written once,
+    the exact int8 conv of the quantized activation."""
+    n, h, w, c, co, k, stride = shape
+    rng = np.random.RandomState(sum(shape))
+    xq = rng.randint(-127, 128, (n, h, w, c)).astype(np.int8)
+    wq = rng.randint(-127, 128, (co, c, k, k)).astype(np.int8)
+    plan = _plan(n, h, w, c, co, k, stride, *layout, tpb, c_chunk=chunk)
+    assert plan.streamed == (chunk is not None)
     got, written = emulate_k5(xq, wq, n, h, w, c, co, k, stride, plan, rng)
     want = F.conv2d(torch.from_numpy(xq).permute(0, 3, 1, 2).double(),
                     torch.from_numpy(wq).double(), stride=stride, padding=(k - 1) // 2)
