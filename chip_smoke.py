@@ -78,8 +78,35 @@ Phases, one JSON line each; any failure exits non-zero:
                to 4 ``predict_batch``; img/s, the host's enqueue ms per
                batch, device ms and idle share of eager, graphed and
                pipelined serving, K1 and K2 per batch from each trace (and
-               the counters equal to each trace's).
-6c. int8_serving -- ppyolo_2x@608 b8 (BN calibrated as in serving) through
+               the counters equal to each trace's).  Then the head's
+               virtual-concat A/B (``head_decompose``): ``off``, ``inner``
+               and ``on``, each mode's replays bit-equal to its eager
+               predict, timed as graph replays in HEAD_AB_ROUNDS windows
+               of SERVE_MODE_BATCHES batches taken in turn (off inner on,
+               on inner off, ...), device ms by class from a 3-batch trace
+               of each, and the concats of an eager predict (a
+               ``TorchFunctionMode``): no CoordConv [B,C+2,H,W] or SPP
+               [B,4C,H,W] concat is written
+               under ``inner`` (and 13 a batch under ``off``); the fastest
+               mode beside ``auto``'s choice for eval bf16.
+6c. export -- the serving artifact (``eval/export.py``) of the serving
+               Detector (ppyolo_2x@608 bf16, full width): the kernel form
+               (K1 and K2 as ``ppyolo::`` operators) at b8 exported, saved,
+               loaded and equal to ``predict_batch`` and the eager forward
+               (labels equal; scores and boxes bitwise, or within 1e-6),
+               K1 3 and K2 1 launches a call by the counters and in a
+               trace, its img/s (each call a CUDA graph replay of the
+               program) over EXPORT_WINDOWS windows beside
+               ``predict_batch``'s in turn, export, save and load seconds;
+               the plain form at EXPORT_PLAIN_BATCH: no kernel launched,
+               equal to the eager forward under the same forms.
+6d. converter -- the serving weights written as a reference ``.pt`` and as
+               a ``.pdparams`` pickle (the Paddle names of
+               ``checkpoint/convert.py::paddle_names``), converted on the
+               CPU (every leaf bitwise the weights), then served on the card
+               through a Detector of their own: detections bit-equal to the
+               serving Detector's on the same batch.
+6e. int8_serving -- ppyolo_2x@608 b8 (BN calibrated as in serving) through
                ``Detector(precision="int8")``, graph replays: K1 3, K2 1 and K5
                65 launches a batch (counted, and in a trace); img/s in int8,
                bf16, bf16, int8 windows, device ms and idle share of each;
@@ -88,13 +115,13 @@ Phases, one JSON line each; any failure exits non-zero:
                captures anew, bit-equal to eager again, static serving timed;
                the card's int8 head maps within 0.2 (relative L2) of its bf16
                maps (identity BN, 2 x 160 px; twice the CPU test's bound).
-6d. multiclass -- the same int8 model with ``nms_type='multiclass_nms'``:
+6f. multiclass -- the same int8 model with ``nms_type='multiclass_nms'``:
                K6 once a batch beside K1, K2 and K5, graphed bit-equal to
                eager, img/s and device ms; the NMS of a served batch alone
                (on the decode's outputs): device ms split into K6 and the
                rest, its ms in a CUDA graph, and no op on a [B, k, k]
                tensor.
-6e. serving_entries -- ``entry.demo`` at int8 on 16 synthetic jpgs (drawn
+6g. serving_entries -- ``entry.demo`` at int8 on 16 synthetic jpgs (drawn
                images, fps, device ms) and ``entry.test_dev`` at int8 on the
                same images (the submission json written and parsed), through
                their ``main`` with ``--config 0`` pointed at the synthetic
@@ -118,8 +145,11 @@ Phases, one JSON line each; any failure exits non-zero:
                generator (losses, params, BN statistics, momentum, EMA,
                step and generator bitwise), ``make_multi_train_step`` with
                4 steps in each target pipeline bitwise equal to each other
-               and to the 4 one-step replays; ms/step, enqueue ms, idle
-               share of eager, one-step and 4-step replays, capture
+               and to the 4 one-step replays; then the 'prescan' and
+               'doublebuf' units are destroyed (``del``, ``gc.collect()``,
+               ``empty_cache()``) before the profiled replays of the live
+               ones (``train/graphs.py::GraphPool``); ms/step, enqueue ms,
+               idle share of eager, one-step and 4-step replays, capture
                seconds and peak memory.
 9. train_check -- one fp32 step (TF32 off) on the card against the same step
                on the CPU path (the kernels' plain versions) at 128x128,
@@ -188,6 +218,7 @@ Phases, one JSON line each; any failure exits non-zero:
                under the group with DCP and a periodic eval on rank 0 while
                the others wait in their next collective.
 
+Every phase's line carries ``phase_s``, the seconds since the phase began.
 Then one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line.  Imports nothing of JAX.
 """
@@ -211,6 +242,10 @@ BATCH, SIZE = 8, 608
 WARMUP_BATCHES = 2
 GROUP = 4                         # batches a predict_pipelined replay serves
 SERVE_MODE_BATCHES = 40           # batches timed per serving mode
+HEAD_MODES = ("off", "inner", "on")   # the head's virtual-concat modes of the A/B
+HEAD_AB_ROUNDS = 3                # windows per head mode, taken in turn
+EXPORT_WINDOWS, EXPORT_WINDOW_CALLS = 5, 10   # the artifact timed against predict_batch
+EXPORT_PLAIN_BATCH = 2            # the plain-form artifact's batch
 WINDOWS, WINDOW_BATCHES = 5, 40   # timed serving: 200 batches, a few seconds
 TRAIN_WARMUP, TRAIN_WINDOWS, TRAIN_WINDOW_STEPS = 2, 3, 10
 GRAPH_STEPS, GRAPH_TIMED_UNITS = 4, 3   # graphed vs eager fine-tuning steps
@@ -252,14 +287,24 @@ NMS_B, NMS_K = BATCH, 500        # K6's check: b8, k = nms_top_k
 NMS_K_WIDE = 1500                # and past its first form's cap of 1024
 DEMO_IMAGES = 16                 # synthetic jpgs through entry.demo and entry.test_dev
 # the path whose run gives each kernel's ``launches``
+EXPORT_DIR = REPO / "build" / "chip_smoke_export"   # artifacts and converted weights
 MAIN_PATH = {"dcn_fwd": "serving", "fused_stem": "serving", "dcn_bwd": "training",
              "conv_s2": "probe", "conv_int8": "int8_serving", "nms_keep": "multiclass"}
 
 
 SMI = ""   # nvidia-smi's name and power limit, set by phase_device
+PHASE_T0 = time.perf_counter()   # set by main as each phase begins
+
+
+def begin() -> None:
+    """Mark the start of a phase (its lines' ``phase_s``)."""
+    global PHASE_T0
+    PHASE_T0 = time.perf_counter()
 
 
 def emit(obj) -> None:
+    if "phase" in obj:
+        obj = dict(obj, phase_s=round(time.perf_counter() - PHASE_T0, 3))
     print(json.dumps(obj), flush=True)
 
 
@@ -980,17 +1025,25 @@ def phase_serving(smi: str):
     # small input, with the init's identity BN: with calibrated BN the random
     # network is chaotic (its bf16 and fp32 CPU forwards differ by 0.4-0.9
     # relative L2), so there the check could not tell a fault from rounding
+    # (every head mode: ``head_decompose``)
+    from ppyolo_tpu_torch.models.head import head_decompose
+
     x = np.ascontiguousarray(images[0][:2, 200:360, 200:360])
     maps = {}
     for dev in ("cuda", "cpu"):
         m = build_model(cfg, dev)
         d = Detector(m, {k: v.detach().cpu() for k, v in m.state_dict().items()}, cfg,
                      precision="bf16", device=dev)
-        maps[dev] = [o.float().cpu() for o in d.model.outputs(
-            d.normalize(torch.from_numpy(x).to(dev)))]
-    rel = [float((a - b).norm() / b.norm()) for a, b in zip(maps["cuda"], maps["cpu"])]
-    if not all(r <= 2e-2 for r in rel):
-        raise AssertionError(f"card vs CPU head maps, relative L2 {rel} > 2e-2")
+        for mode in ("auto",) + HEAD_MODES:
+            with torch.no_grad(), head_decompose(mode):
+                maps[dev, mode] = [o.float().cpu() for o in d.model.outputs(
+                    d.normalize(torch.from_numpy(x).to(dev)))]
+    rels = {mode: [float((a - b).norm() / b.norm())
+                   for a, b in zip(maps["cuda", mode], maps["cpu", mode])]
+            for mode in ("auto",) + HEAD_MODES}
+    rel = rels["auto"]
+    if not all(r <= 2e-2 for v in rels.values() for r in v):
+        raise AssertionError(f"card vs CPU head maps, relative L2 {rels} > 2e-2")
 
     med = float(np.median(window_ips))
     result = {"phase": "serving", "model": "ppyolo_2x", "size": SIZE, "batch": BATCH,
@@ -1004,7 +1057,8 @@ def phase_serving(smi: str):
               "batch_ms_min": 1e3 * min(lat), "setup_s": setup_s,
               "launches": launches, "captured": captured,
               "kept_detections_last_batch": kept,
-              "card_vs_cpu_rel_l2": rel, "nvidia_smi": smi,
+              "card_vs_cpu_rel_l2": rel, "card_vs_cpu_rel_l2_by_head_mode": rels,
+              "nvidia_smi": smi,
               "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
     emit(result)
     return det, sd, images[0], sizes, result["batch_ms_median"], (launches, captured)
@@ -1106,7 +1160,10 @@ def serving_modes(det, batches, sizes) -> dict:
 
     big = np.concatenate(batches[:GROUP])
     big_sizes = np.concatenate([sizes] * GROUP)
-    graphs = {g: det._graphs[g] for g in (1, GROUP)}
+    from ppyolo_tpu_torch.models.head import decompose_mode
+
+    mode = decompose_mode(False, det.compute_dtype)    # the Detector's graph keys
+    graphs = {g: det._graphs[g, mode, "auto", "auto"] for g in (1, GROUP)}
 
     def run(mode, i):
         if mode == "eager":
@@ -1193,15 +1250,255 @@ def phase_graphs_serving(det, sd, smi: str) -> dict:
     for mode, r in modes.items():
         if r["launches_per_batch"] != expect({"dcn_fwd": 3, "fused_stem": 1}, 1):
             raise AssertionError(f"{mode}: launches per batch {r['launches_per_batch']}")
+    head = head_mode_ab(det, batches, sizes)
     out = {"phase": "graphs_serving", "model": "ppyolo_2x", "size": SIZE, "batch": BATCH,
            "precision": "bf16", "group": GROUP, "bitwise_graphed_vs_eager": True,
            "bitwise_after_set_params": True, "bitwise_pipelined_vs_batches": True,
            "kept_detections": int((first[..., 0] >= 0).sum()),
            "capture_s": {str(k): sum(gr.captures.values()) for k, gr in det._graphs.items()},
-           "modes": modes, "nvidia_smi": smi,
+           "modes": modes, "head_modes": head, "nvidia_smi": smi,
            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
     emit(out)
     return out
+
+
+def artifact_ops(program) -> dict:
+    """The ``ppyolo::`` operator nodes of an exported program, by name."""
+    ops = {}
+    for n in program.graph.nodes:
+        t = str(n.target)
+        if t.startswith("ppyolo."):
+            ops[t.split(".")[1]] = ops.get(t.split(".")[1], 0) + 1
+    return ops
+
+
+def compare_dets(got, want, where: str) -> dict:
+    """Labels equal; scores and boxes bitwise, else within 1e-6."""
+    import numpy as np
+
+    if not np.array_equal(got[..., 0], want[..., 0]):
+        raise AssertionError(f"{where}: labels differ")
+    err = float(np.abs(got - want).max())
+    if err > 1e-6:
+        raise AssertionError(f"{where}: scores/boxes differ by {err} > 1e-6")
+    return {"bitwise": bool(np.array_equal(got, want)), "max_abs_diff": err,
+            "kept": int((want[..., 0] >= 0).sum())}
+
+
+def phase_export(det, smi: str):
+    """The serving artifact of the serving Detector (ppyolo_2x@608 bf16):
+    the kernel form at b8 (K1 and K2 as ``ppyolo::`` operators) exported,
+    saved, loaded, equal to ``predict_batch`` and to the eager forward,
+    K1 3 and K2 1 launches a call (counters and trace), img/s in windows
+    taken in turn with ``predict_batch``'s; the plain form at
+    EXPORT_PLAIN_BATCH launching no kernel, equal to the eager forward
+    under the same forms.  Returns the kernel form's counts (the
+    ``export`` path)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from ppyolo_tpu_torch.eval.export import (export_detector, load_program, save_serving,
+                                              serving_fn)
+    from ppyolo_tpu_torch.ops.deform_conv import dcn_form
+    from ppyolo_tpu_torch.ops.stem import stem_form
+
+    EXPORT_DIR.mkdir(parents=True, exist_ok=True)
+    rng = np.random.RandomState(31)
+    images = rng.randint(0, 256, (BATCH, SIZE, SIZE, 3), dtype=np.uint8)
+    sizes = np.tile(np.array([[480, 640], [608, 608]], np.float32), (BATCH // 2, 1))
+    out = {"phase": "export", "model": "ppyolo_2x", "size": SIZE, "precision": "bf16"}
+    for form, batch in (("kernel", BATCH), ("plain", EXPORT_PLAIN_BATCH)):
+        t0 = time.perf_counter()
+        data = export_detector(det, batch=batch, dcn=form, stem=form)
+        t1 = time.perf_counter()
+        path = EXPORT_DIR / f"ppyolo_2x_{SIZE}_b{batch}_{form}.pt2"
+        save_serving(str(path), data)
+        t2 = time.perf_counter()
+        program = load_program(path.read_bytes())
+        serve = serving_fn(program)
+        t3 = time.perf_counter()
+        ims, szs = images[:batch], sizes[:batch]
+        serve(ims, szs)                              # first call
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        r = {"batch": batch, "bytes": len(data), "export_s": t1 - t0, "save_s": t2 - t1,
+             "load_s": t3 - t2, "first_call_s": t4 - t3, "ops": artifact_ops(program)}
+        zero_counts()
+        got = serve(ims, szs)
+        r["launches_per_call"] = read_counts()
+        if form == "kernel":
+            per_call = {"dcn_fwd": 3, "fused_stem": 1}
+            if r["ops"] != per_call or r["launches_per_call"] != expect(per_call, 1):
+                raise AssertionError(f"kernel-form artifact: ops {r['ops']}, launches "
+                                     f"{r['launches_per_call']}")
+            r["vs_predict_batch"] = compare_dets(got, det.predict_batch(ims, szs),
+                                                 "artifact vs predict_batch")
+            r["vs_eager"] = compare_dets(got, eager_predict(det, ims, szs)[0].cpu().numpy(),
+                                         "artifact vs the eager forward")
+            zero_counts()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                serve(ims, szs)
+                torch.cuda.synchronize()
+            check_counts_in_trace(prof, "kernel-form artifact")
+            r["launches_in_trace"] = kernel_launches(prof, 1)
+            r["device_ms_per_call"] = device_time(prof, 1)[0]
+            zero_counts()                            # the export path's run
+            for _ in range(EXPORT_WINDOW_CALLS):
+                serve(ims, szs)
+            counts = (read_counts(), read_captured())
+            if counts[0] != expect(per_call, EXPORT_WINDOW_CALLS):
+                raise AssertionError(f"{EXPORT_WINDOW_CALLS} artifact calls: launches {counts[0]}")
+            art, pb = [], []
+            for _ in range(EXPORT_WINDOWS):
+                for fn, acc in ((serve, art), (det.predict_batch, pb)):
+                    t = time.perf_counter()
+                    for _ in range(EXPORT_WINDOW_CALLS):
+                        fn(ims, szs)
+                    acc.append(batch * EXPORT_WINDOW_CALLS / (time.perf_counter() - t))
+            r.update(window_img_per_s=art, img_per_s_median=float(np.median(art)),
+                     predict_batch_window_img_per_s=pb,
+                     predict_batch_img_per_s_median=float(np.median(pb)))
+        else:
+            if r["ops"] or any(r["launches_per_call"].values()):
+                raise AssertionError(f"plain-form artifact: ops {r['ops']}, launches "
+                                     f"{r['launches_per_call']}")
+            with dcn_form("plain"), stem_form("plain"):
+                want = eager_predict(det, ims, szs)[0].cpu().numpy()
+            r["vs_eager_plain_forms"] = compare_dets(got, want, "plain artifact vs eager")
+        out[form] = r
+        del program, serve
+    out["nvidia_smi"] = smi
+    emit(out)
+    return counts
+
+
+def phase_converter(det, sd, smi: str) -> dict:
+    """The serving weights as a reference ``.pt`` and as a ``.pdparams``
+    pickle, converted on the CPU (every leaf bitwise), then served on the
+    card by a Detector of their own: detections bit-equal to ``det``'s."""
+    import pickle
+
+    import numpy as np
+    import torch
+    from configs import PPYOLO_2x_Config
+    from ppyolo_tpu_torch.checkpoint.convert import (convert_paddle_state_dict,
+                                                     convert_torch_state_dict,
+                                                     load_paddle_state_dict,
+                                                     load_torch_state_dict, paddle_names)
+    from ppyolo_tpu_torch.eval.detector import Detector
+    from ppyolo_tpu_torch.models import PPYOLO
+
+    cfg = PPYOLO_2x_Config()
+    EXPORT_DIR.mkdir(parents=True, exist_ok=True)
+    model = PPYOLO.from_config(cfg)
+    names = paddle_names(model)
+    if sorted(names.values()) != sorted(sd):
+        raise AssertionError("the Paddle names do not cover every leaf of ppyolo_2x")
+    pt, pdp = EXPORT_DIR / "ppyolo_2x.pt", EXPORT_DIR / "ppyolo.pdparams"
+    t0 = time.perf_counter()
+    torch.save(sd, pt)
+    with open(pdp, "wb") as f:
+        pickle.dump({p: sd[k].numpy() for p, k in names.items()}, f, protocol=2)
+    t1 = time.perf_counter()
+    conv = {"pt": convert_torch_state_dict(load_torch_state_dict(str(pt)), model)}
+    t2 = time.perf_counter()
+    conv["pdparams"] = convert_paddle_state_dict(load_paddle_state_dict(str(pdp)), model)
+    t3 = time.perf_counter()
+    for kind, got in conv.items():
+        bad = [k for k, v in sd.items() if not torch.equal(got[k], v)]
+        if bad or sorted(got) != sorted(sd):
+            raise AssertionError(f"{kind}: {len(bad)} leaves differ from the weights: {bad[:5]}")
+    rng = np.random.RandomState(41)
+    images = rng.randint(0, 256, (BATCH, SIZE, SIZE, 3), dtype=np.uint8)
+    sizes = np.tile(np.array([[480, 640]], np.float32), (BATCH, 1))
+    want = det.predict_batch(images, sizes)
+    served = Detector(PPYOLO.from_config(cfg), conv["pt"], cfg, precision="bf16", device="cuda")
+    res = {}
+    for kind in ("pt", "pdparams"):
+        served.set_params(conv[kind])
+        got = served.predict_batch(images, sizes)
+        if not np.array_equal(got, want):
+            raise AssertionError(f"{kind} weights served on the card differ from the "
+                                 f"serving Detector's: max abs {float(np.abs(got - want).max())}")
+        res[kind] = {"bitwise": True, "kept": int((got[..., 0] >= 0).sum())}
+    out = {"phase": "converter", "model": "ppyolo_2x", "leaves": len(sd),
+           "paddle_names": len(names), "write_s": t1 - t0, "convert_pt_s": t2 - t1,
+           "convert_pdparams_s": t3 - t2, "pt_bytes": pt.stat().st_size,
+           "pdparams_bytes": pdp.stat().st_size, "served": res, "nvidia_smi": smi}
+    del served
+    for f in (pt, pdp):
+        f.unlink()
+    emit(out)
+    return out
+
+
+def head_concats(det, images, sizes) -> int:
+    """The channel ``torch.cat`` calls of an eager predict that write a
+    CoordConv concat (a [B,C,H,W] tensor and [B,2,H,W] planes) or an SPP
+    one (four [B,C,H,W] tensors), seen by a ``TorchFunctionMode``."""
+    import torch
+    from torch.overrides import TorchFunctionMode
+
+    class Cats(TorchFunctionMode):
+        def __init__(self):
+            super().__init__()
+            self.shapes = []
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            dim = args[1] if len(args) > 1 else kwargs.get("dim", 0)
+            if func is torch.cat and dim in (1, -3):
+                self.shapes.append([tuple(t.shape) for t in args[0]])
+            return func(*args, **kwargs)
+
+    with Cats() as cats:
+        eager_predict(det, images, sizes)
+    n = 0
+    for s4 in cats.shapes:
+        coord = (len(s4) == 2 and len(s4[1]) == 4 and s4[1][1] == 2
+                 and s4[0][0] == s4[1][0] and s4[0][2:] == s4[1][2:])
+        if coord or (len(s4) == 4 and len(s4[0]) == 4 and len(set(s4)) == 1):
+            n += 1
+    return n
+
+
+def head_mode_ab(det, batches, sizes) -> dict:
+    """The head's virtual-concat modes on the serving Detector: each mode's
+    replay bit-equal to its eager predict; img/s as graph replays in
+    HEAD_AB_ROUNDS windows of SERVE_MODE_BATCHES batches, the modes taken
+    in turn; device ms by class over 3 replays; the CoordConv and SPP
+    concats an eager predict writes."""
+    import numpy as np
+    from ppyolo_tpu_torch.models.head import AUTO_EVAL_BF16, head_decompose
+
+    res = {}
+    for mode in HEAD_MODES:
+        with head_decompose(mode):
+            graphed_equals_eager(det, batches[0], sizes, f"head mode {mode}")
+            det.predict_batch(batches[1], sizes)
+    windows = {mode: [] for mode in HEAD_MODES}
+    for r in range(HEAD_AB_ROUNDS):
+        for mode in (HEAD_MODES if r % 2 == 0 else HEAD_MODES[::-1]):
+            with head_decompose(mode):
+                windows[mode].append(serve_window(det, batches, sizes,
+                                                  SERVE_MODE_BATCHES)["img_per_s"])
+    for mode in HEAD_MODES:
+        with head_decompose(mode):
+            prof = profiled_batches(det, batches, sizes, {"dcn_fwd": 3, "fused_stem": 1},
+                                    f"head mode {mode}")
+            concats = head_concats(det, batches[0], sizes)
+        res[mode] = {"window_img_per_s": windows[mode],
+                     "img_per_s_median": float(np.median(windows[mode])),
+                     "device_ms_per_batch": prof["device_ms_per_batch"],
+                     "by_class": prof["by_class"], "top": prof["top"][:8],
+                     "coord_spp_concats_per_batch": concats}
+    if res["inner"]["coord_spp_concats_per_batch"] or not res["off"]["coord_spp_concats_per_batch"]:
+        raise AssertionError("CoordConv/SPP concats written per batch: "
+                             f"{ {m: r['coord_spp_concats_per_batch'] for m, r in res.items()} }")
+    return {"modes": res, "rounds": HEAD_AB_ROUNDS, "window_batches": SERVE_MODE_BATCHES,
+            "fastest_by_img_per_s": max(HEAD_MODES, key=lambda m: res[m]["img_per_s_median"]),
+            "fastest_by_device_ms": min(HEAD_MODES, key=lambda m: res[m]["device_ms_per_batch"]),
+            "auto_eval_bf16": AUTO_EVAL_BF16}
 
 
 def serve_window(det, images, sizes, batches: int) -> dict:
@@ -1312,7 +1609,7 @@ def phase_int8_serving(smi: str):
     if any(t.dtype != torch.float32 or t.dim() != 0 for t in scales):
         raise AssertionError("act scales must be 0-d fp32")
     static = serve_window(det8, images, sizes, INT8_WINDOW_BATCHES)
-    if list(det8._graphs) != [1]:
+    if [key[0] for key in det8._graphs] != [1]:     # (group, head mode, forms)
         raise AssertionError("no graph was captured after calibrate")
     graphed_equals_eager(det8, images[0], sizes, "int8, static scales")
     prof["int8_static"] = profiled_batches(det8, images, sizes, per_batch, "int8 static")
@@ -1674,6 +1971,8 @@ def phase_graphs_training(smi: str) -> dict:
     3. ms/step, host enqueue ms and the idle share of eager steps, one-step
        replays and multi-step replays; K1 and K3 per step from the trace;
        capture seconds and the peak memory of the graphs."""
+    import gc
+
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1742,12 +2041,17 @@ def phase_graphs_training(smi: str) -> dict:
                 raise AssertionError(f"{mode}: state after one {GRAPH_STEPS}-step replay "
                                      f"differs from {GRAPH_STEPS} one-step replays: {d}")
             multi_capture[mode] = sum(unit.graphs.captures.values())
-            # Every unit lives to the end of the phase: destroying two of them
-            # (gc, empty_cache) segfaulted the next profiled replay of a live
-            # unit that shares their generator, whenever a torch.profiler
-            # session had run earlier in the process (PERF.md §7).
             multi[mode] = unit
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        # the units the speed forms do not use go before the profiled
+        # replays of the live ones (their pools' memory is kept for reuse:
+        # train/graphs.py::GraphPool)
+        reserved_gb = torch.cuda.memory_reserved() / 1e9
+        for mode in ("prescan", "doublebuf"):
+            del multi[mode]
+        del unit
+        gc.collect()
+        torch.cuda.empty_cache()
 
         # speed of the three forms on the same batches
         eager_fn = make_train_step(graph_state.model, cfg, compute_dtype=torch.bfloat16)
@@ -1790,7 +2094,10 @@ def phase_graphs_training(smi: str) -> dict:
            "bitwise_graphed_vs_eager": True, "bitwise_pipelines": list(TARGET_PIPELINES),
            "capture_s_one_step": sum(one.graphs.captures.values()),
            "capture_s_multi": multi_capture, "peak_memory_gb_one_step_graph": one_peak_gb,
-           "peak_memory_gb_with_multi_graphs": peak_gb, "speed": speed, "nvidia_smi": smi}
+           "peak_memory_gb_with_multi_graphs": peak_gb,
+           "reserved_gb_before_destroying_two_units": reserved_gb,
+           "reserved_gb_after": torch.cuda.memory_reserved() / 1e9,
+           "destroyed_units": ["prescan", "doublebuf"], "speed": speed, "nvidia_smi": smi}
     emit(out)
     return out
 
@@ -2925,35 +3232,56 @@ def main() -> int:
     try:
         import torch
 
+        begin()
         name, smi = phase_device()
         sys.path.insert(0, str(REPO))
         torch.backends.cudnn.allow_tf32 = False        # fp32 plain versions in fp32
         torch.backends.cuda.matmul.allow_tf32 = False
+        begin()
         phase_build()
+        begin()
         rows = phase_kernels()
+        begin()
         counts = {"probe": phase_probe()}
+        begin()
         det, sd, images, sizes, batch_ms, counts["serving"] = phase_serving(smi)
+        begin()
         phase_profile(det, images, sizes, batch_ms)
+        begin()
         phase_graphs_serving(det, sd, smi)
+        begin()
+        counts["export"] = phase_export(det, smi)
+        begin()
+        phase_converter(det, sd, smi)
         del det
         torch.cuda.empty_cache()
+        begin()
         sd8, counts["int8_serving"] = phase_int8_serving(smi)
+        begin()
         counts["multiclass"] = phase_multiclass(sd8, smi)
         del sd8
+        begin()
         counts["serving_entries"] = phase_serving_entries(smi)
         torch.cuda.empty_cache()
+        begin()
         state, cfg, host, step_ms, counts["training"] = phase_training(smi)
+        begin()
         phase_train_profile(state, cfg, host, step_ms)
         del state
         torch.cuda.empty_cache()
+        begin()
         phase_graphs_training(smi)
         torch.cuda.empty_cache()
+        begin()
         phase_train_check()
         torch.cuda.empty_cache()
+        begin()
         counts["entry"] = phase_entry(smi)
         torch.cuda.empty_cache()
+        begin()
         counts["distributed"] = phase_distributed(smi)
         if torch.cuda.device_count() > 1:
+            begin()
             phase_cards(smi)
     except Exception as e:  # report and fail: no result line
         import traceback

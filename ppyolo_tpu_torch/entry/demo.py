@@ -3,8 +3,8 @@
     python -m ppyolo_tpu_torch.entry.demo --config 0 --precision int8 --image_dir images/test
 
 Weights come from ``test_cfg['model_path']`` (an npz in the JAX package's
-format; random weights from seed 0, with a warning, when it is missing;
-``.pt`` weights are not ported and raise ``NotImplementedError``).  Ten
+format, or a reference ``.pt`` through the converter; random weights from
+seed 0, with a warning, when it is missing).  Ten
 warm-up detections of the first image (the reference demo.py:120-123; on
 the card they capture the batch-1 graph), then every jpg/png of
 ``--image_dir`` in name order through ``Detector.detect_image``, one image
@@ -26,7 +26,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..checkpoint.io import load_params_npz
+from ..checkpoint.convert import load_weights
 from ..data.loader import Prefetcher
 from ..eval.coco_eval import get_classes
 from ..eval.detector import Detector
@@ -46,11 +46,9 @@ def demo_state_dict(cfg, model) -> dict:
     model.init_parameters(torch.Generator().manual_seed(0))
     state_dict = model.state_dict()
     model_path = cfg.test_cfg.get("model_path")
-    if model_path and model_path.endswith(".pt"):
-        raise NotImplementedError(".pt weights are not ported (ROADMAP §1 item 12)")
     if model_path and os.path.exists(model_path):
         logger.info("loaded %s", model_path)
-        return load_params_npz(model_path, state_dict)
+        return load_weights(model_path, state_dict)
     logger.warning("model file %s missing - using random init", model_path)
     return state_dict
 

@@ -14,8 +14,9 @@ unit of work (``Detector.predict_pipelined``).  On N cards, one process each:
 
 every rank evaluates its shard of the images on its own card and rank 0
 merges the shards and scores them (``coco_eval(distributed=True)``; the
-others return None).  ``--ndev`` must equal the world size.  ``.pt``
-weights are not ported and raise ``NotImplementedError``.
+others return None).  ``--ndev`` must equal the world size.  A
+reference ``.pt`` ``model_path`` loads through the converter
+(``checkpoint/convert.py``).
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ from typing import Optional
 
 import torch
 
-from ..checkpoint.io import load_params_npz
+from ..checkpoint.convert import load_weights
 from ..data.coco import CocoJson
 from ..eval.coco_eval import clsid_to_catid, coco_eval, get_classes
 from ..eval.detector import Detector
@@ -50,10 +51,8 @@ def run_eval(cfg, *, type_: str = "eval", state_dict=None, precision: str = "fp3
         model.init_parameters(torch.Generator().manual_seed(0))
         state_dict = model.state_dict()
         model_path = cfg.eval_cfg.get("model_path")
-        if model_path and model_path.endswith(".pt"):
-            raise NotImplementedError(".pt weights are not ported (ROADMAP §1 item 12)")
         if model_path and os.path.exists(model_path):
-            state_dict = load_params_npz(model_path, state_dict)
+            state_dict = load_weights(model_path, state_dict)
             logger.info("loaded %s", model_path)
         else:
             logger.warning("model file %s missing - using random init", model_path)

@@ -43,7 +43,8 @@ checkpoints through ``torch.distributed.checkpoint``
 (``checkpoint/dcp_io.py``, ``weights_dir/dcp``), saved by every rank and
 restored from the latest step at start.  ``--use_gpu false`` runs the
 ranks on the CPU under gloo; ``--ndev`` must equal the world size.
-``.pt`` weights are not ported and raise ``NotImplementedError``.
+A reference ``.pt`` ``model_path`` loads through the converter
+(``checkpoint/convert.py``).
 """
 from __future__ import annotations
 
@@ -57,8 +58,9 @@ from typing import Optional
 import torch
 
 from ..checkpoint.dcp_io import DCPCheckpointer
-from ..checkpoint.io import (AsyncCheckpointer, gc_checkpoints, load_params_npz,
-                             load_train_state, resume_step_from_filename)
+from ..checkpoint.convert import load_weights
+from ..checkpoint.io import (AsyncCheckpointer, gc_checkpoints, load_train_state,
+                             resume_step_from_filename)
 from ..data.coco import CocoJson, category_maps, data_clean
 from ..data.loader import DevicePrefetcher, Prefetcher, stack_units, train_batches
 from ..eval.coco_eval import clsid_to_catid, coco_eval
@@ -103,8 +105,6 @@ def check_ported(cfg, ndev: Optional[int] = None) -> None:
     check_ndev(ndev)
     if tc.get("ckpt_backend", "npz") not in CKPT_BACKENDS:
         raise ValueError(f"checkpoint backend {tc['ckpt_backend']!r} not in {CKPT_BACKENDS}")
-    if str(tc.get("model_path") or "").endswith(".pt"):
-        raise NotImplementedError(".pt weights are not ported (ROADMAP §1 item 12)")
 
 
 def eval_state_dict(state: TrainState):
@@ -128,7 +128,7 @@ def run_training(cfg, *, weights_dir: str = "./weights", device=None,
     start_iter = 0
     model_path = tc.get("model_path")
     if model_path and os.path.exists(model_path):
-        model.load_state_dict(load_params_npz(model_path, model.state_dict()))
+        model.load_state_dict(load_weights(model_path, model.state_dict()))
         start_iter = resume_step_from_filename(model_path) or 0
         logger.info("loaded %s (resume iter %d)", model_path, start_iter)
     model.to(device=dev, memory_format=torch.channels_last)

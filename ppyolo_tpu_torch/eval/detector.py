@@ -5,8 +5,10 @@ Counterpart of ``ppyolo_tpu/eval/detector.py::Detector``.  Images travel to
 the device as uint8 NHWC, staged through pinned memory, and are
 normalized there; the NHWC batch viewed as NCHW is ``channels_last``, so no
 layout copy happens.  On a card a predict is one replay of a CUDA graph
-(``train/graphs.py``), captured at the first batch of each (batch, size)
-and, for ``predict_pipelined``, group: the host copies the batch into the
+(``train/graphs.py``), captured at the first batch of each (batch, size),
+head mode (``models/head.py::head_decompose``), DCN and stem form
+(``dcn_form``, ``stem_form``) and, for ``predict_pipelined``, group: the
+host copies the batch into the
 graph's input, replays and copies the detections out (the JAX package's
 jitted ``predict_batch`` and scanned ``predict_pipelined``).  On the CPU
 the same function runs eagerly, as it does on a card under a gloo process
@@ -35,9 +37,12 @@ import numpy as np
 import torch
 
 from ..ops.conv import ConvNormAct, match_int8_form
+from ..models.head import decompose_mode
+from ..ops.deform_conv import DCN_FORM
+from ..ops.stem import STEM_FORM
 from ..ops.module import resolve_device
 from ..parallel import dist
-from ..train.graphs import Graphs
+from ..train.graphs import GraphPool, Graphs
 from .optimize import COMPUTE_DTYPES, calibrate_act_scales, optimize_for_inference
 
 
@@ -53,7 +58,7 @@ class Detector:
                               memory_format=torch.channels_last).eval()
         self._graphs = {}   # group -> Graphs, all in one memory pool
         self._capture = dist.can_capture(self.device)
-        self._pool = torch.cuda.graph_pool_handle() if self._capture else None
+        self._pool = GraphPool.get(self.device) if self._capture else None
         self.set_params(state_dict)
         self.target_size = int(target_size or cfg.test_cfg["target_size"])
         mean = np.array(cfg.normalizeImage["mean"], np.float32)
@@ -66,6 +71,10 @@ class Detector:
             mean, std = mean[::-1].copy(), std[::-1].copy()
         self.mean = torch.from_numpy(mean).to(self.device).view(1, 3, 1, 1)
         self.std = torch.from_numpy(std).to(self.device).view(1, 3, 1, 1)
+
+    @property
+    def precision(self) -> str:
+        return self._precision
 
     def set_params(self, state_dict) -> None:
         """Load new weights (the port's keys, fp32, any device), BN folded
@@ -142,12 +151,16 @@ class Detector:
         if not self._capture:
             return self._predict(images.to(self.device), sizes.to(self.device),
                                  group).cpu().numpy()
-        if group not in self._graphs:
-            self._graphs[group] = Graphs(
+        # a graph holds the head's virtual-concat mode and the DCN and stem
+        # forms it was captured in
+        key = (group, decompose_mode(False, self.compute_dtype), DCN_FORM.get(),
+               STEM_FORM.get())
+        if key not in self._graphs:
+            self._graphs[key] = Graphs(
                 lambda inp: {"det": self._predict(inp["image"], inp["im_size"], group)},
                 self.device, pool=self._pool, model=self.model)
         # pinned, so the copies into the graph's inputs are asynchronous
-        out = self._graphs[group]({"image": images.pin_memory(), "im_size": sizes.pin_memory()})
+        out = self._graphs[key]({"image": images.pin_memory(), "im_size": sizes.pin_memory()})
         return out["det"].cpu().numpy()
 
     def predict_batch(self, pimages: np.ndarray, im_sizes: np.ndarray) -> np.ndarray:

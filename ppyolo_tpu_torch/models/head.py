@@ -7,11 +7,26 @@ IoU-aware decode and batched Matrix-NMS, or multiclass (hard) NMS when
 ``nms_cfg['nms_type']`` is ``'multiclass_nms'`` (``head.py:327-330``).
 The paramless CoordConv / SPP / DropBlock slots consume ``layers``
 indices, so the keys match the JAX param tree
-(``detection_blocks.0.layers.1.conv.weight``).  Every concat is
-materialized with ``torch.cat``; the JAX package's virtual concat
-(``HEAD_DECOMPOSE``) is a TPU layout optimisation not ported yet (in int8
-serving the JAX package materializes them too: ``ops/conv.py:351-354``).
-DropBlock runs in training only (``head.py:143-147``), drawing from the
+(``detection_blocks.0.layers.1.conv.weight``), and each conv carries the
+Paddle name the JAX head gives it (``yolo_block.0.0.0``, ``yolo_output.0
+.conv``) for the ``.pdparams`` converter.
+
+The concats can be virtual (``head_decompose``, the JAX package's
+``HEAD_DECOMPOSE``, ``head.py:32-45``): a conv over a list of parts sums
+one conv per part (``ConvNormAct.forward_parts``) and the concat is never
+written.  ``off`` materializes every concat with ``torch.cat``; ``inner``
+keeps the CoordConv planes (batch-1, their term computed once per grid)
+and the SPP pyramid virtual but writes the route || backbone concat;
+``on`` keeps the route concat virtual too.  ``auto`` is ``off`` in
+training and in fp32 (the fused conv's summation order) and
+``AUTO_EVAL_BF16`` for eval-mode bf16, chosen by an H100 A/B of the three
+at ppyolo_2x@608 b8 (``chip_smoke.py``'s ``graphs_serving``; PERF.md):
+``inner`` and ``on`` both serve 12-16% faster than ``off`` and lie within
+each other's run-to-run spread, and the tie goes to ``inner``, the JAX
+package's mode, so the port sums as the reference does.  int8 and DCN convs take the materialized form
+(``ConvNormAct.forward_parts``).  The mode is read when the forward runs,
+so a captured CUDA graph holds one mode (``Detector`` keys its graphs by
+it).  DropBlock runs in training only (``head.py:143-147``), drawing from the
 generator handed to ``get_outputs``.  The decode's anchors are a
 non-persistent integer buffer (pixel sizes, exact under the serving
 model's bf16 cast), so they move with the model and the predict makes no
@@ -25,10 +40,25 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.blocks import coord_conv, drop_block, spp, upsample_nearest_2x
+from ..ops.blocks import coord_conv, coord_planes, drop_block, spp, spp_parts, upsample_nearest_2x
 from ..ops.conv import ConvNormAct, param_policy_tree
+from ..ops.module import make_contextvar_override
 from ..ops.matrix_nms import matrix_nms, multiclass_nms
 from ..ops.yolo_box import yolo_box_serving
+
+
+HEAD_DECOMPOSE, head_decompose = make_contextvar_override(
+    "HEAD_DECOMPOSE", ("auto", "on", "off", "inner"), "auto")
+AUTO_EVAL_BF16 = "inner"
+
+
+def decompose_mode(training: bool, dtype: torch.dtype) -> str:
+    """The head's virtual-concat mode for a forward: ``head_decompose``'s
+    value, with ``auto`` resolved (module docstring)."""
+    mode = HEAD_DECOMPOSE.get()
+    if mode == "auto":
+        mode = AUTO_EVAL_BF16 if not training and dtype == torch.bfloat16 else "off"
+    return mode
 
 
 class DetectionBlock(nn.Module):
@@ -36,7 +66,7 @@ class DetectionBlock(nn.Module):
 
     def __init__(self, in_c, channel, *, coord=True, norm="bn", conv_block_num=2,
                  is_first=False, use_spp=True, drop_blk=True, block_size=3,
-                 keep_prob=0.9):
+                 keep_prob=0.9, paddle_name=""):
         super().__init__()
         assert channel % 2 == 0
         self.coord = coord
@@ -50,17 +80,21 @@ class DetectionBlock(nn.Module):
                 layers[key] = mod
             seq.append((kind, key))
 
+        def conv(cin, cout, k, pname):
+            m = ConvNormAct(cin, cout, k, norm=norm, act="leaky")
+            m.paddle_name = f"{paddle_name}.{pname}"
+            return m
+
         c = in_c
         for j in range(conv_block_num):
             add("coord")
-            add("conv", ConvNormAct(c + 2 if coord else c, channel, 1, norm=norm,
-                                    act="leaky"))
+            add("conv", conv(c + 2 if coord else c, channel, 1, f"{j}.0"))
             if use_spp and is_first and j == 1:
                 add("spp")
-                add("conv", ConvNormAct(channel * 4, 512, 1, norm=norm, act="leaky"))
-                add("conv", ConvNormAct(512, channel * 2, 3, norm=norm, act="leaky"))
+                add("conv", conv(channel * 4, 512, 1, f"{j}.spp.conv"))
+                add("conv", conv(512, channel * 2, 3, f"{j}.1"))
             else:
-                add("conv", ConvNormAct(channel, channel * 2, 3, norm=norm, act="leaky"))
+                add("conv", conv(channel, channel * 2, 3, f"{j}.1"))
             if drop_blk and j == 0 and not is_first:
                 add("drop")
             c = channel * 2
@@ -68,27 +102,49 @@ class DetectionBlock(nn.Module):
             add("drop")
         add("coord")
         cc = c if conv_block_num == 0 else channel * 2
-        add("conv", ConvNormAct(cc + 2 if coord else cc, channel, 1, norm=norm,
-                                act="leaky"))
+        add("conv", conv(cc + 2 if coord else cc, channel, 1, "2"))
         self.seq = seq
         self.layers = nn.ModuleDict(layers)
-        self.tip_layers = nn.ModuleDict({"1": ConvNormAct(
-            channel + 2 if coord else channel, channel * 2, 3, norm=norm, act="leaky")})
+        self.tip_layers = nn.ModuleDict({"1": conv(channel + 2 if coord else channel,
+                                                   channel * 2, 3, "tip")})
 
-    def forward(self, x, generator: Optional[torch.Generator] = None):
+    def forward(self, x, generator: Optional[torch.Generator] = None, *,
+                decompose: bool = False):
+        """``x`` a tensor, or with ``decompose`` a list of channel parts (the
+        route concat left virtual); the CoordConv and SPP concats stay
+        virtual under ``decompose`` and every conv output is one tensor
+        again (``ppyolo_tpu/models/head.py:122-160``).  Returns (route, tip)."""
+        coord = False   # is the last part of x the CoordConv planes?
         for kind, key in self.seq:
             if kind == "coord" and self.coord:
-                x = coord_conv(x)
+                if decompose:
+                    ps = x if isinstance(x, list) else [x]
+                    x = ps + [self._planes(ps[0])]
+                    coord = True
+                else:
+                    x = coord_conv(x)
             elif kind == "conv":
-                x = self.layers[key](x)
+                m = self.layers[key]
+                x = m.forward_parts(x, coord=coord) if isinstance(x, list) else m(x)
+                coord = False
             elif kind == "spp":
-                x = spp(x)
+                x = spp_parts(x) if decompose else spp(x)
             elif kind == "drop" and self.training:
                 x = drop_block(x, generator, block_size=self.block_size,
                                keep_prob=self.keep_prob)
         route = x
-        tip = self.tip_layers["1"](coord_conv(route) if self.coord else route)
+        tip_conv = self.tip_layers["1"]
+        if not self.coord:
+            tip = tip_conv(route)
+        elif decompose:
+            tip = tip_conv.forward_parts([route, self._planes(route)], coord=True)
+        else:
+            tip = tip_conv(coord_conv(route))
         return route, tip
+
+    @staticmethod
+    def _planes(x: torch.Tensor) -> torch.Tensor:
+        return coord_planes(x.shape[2], x.shape[3], x.dtype, x.device)
 
 
 class YOLOv3Head(nn.Module):
@@ -128,13 +184,16 @@ class YOLOv3Head(nn.Module):
             blocks.append(DetectionBlock(in_c, channel, coord=coord_conv, norm=norm_type,
                                          conv_block_num=conv_block_num, is_first=i == 0,
                                          use_spp=spp, drop_blk=drop_block,
-                                         block_size=block_size, keep_prob=keep_prob))
+                                         block_size=block_size, keep_prob=keep_prob,
+                                         paddle_name=f"yolo_block.{i}"))
             an = len(self.anchor_masks[i])
             nf = an * (num_classes + 6) if iou_aware else an * (num_classes + 5)
             outs.append(ConvNormAct(channel * 2, nf, 1, bias=True, act=None))
+            outs[-1].paddle_name = f"yolo_output.{i}.conv"
             if i < n - 1:
                 trans[str(2 * i)] = ConvNormAct(channel, 256 // (2 ** i), 1,
                                                 norm=norm_type, act="leaky")
+                trans[str(2 * i)].paddle_name = f"yolo_transition.{i}"
         self.detection_blocks = nn.ModuleList(blocks)
         self.yolo_output_convs = nn.ModuleList(outs)
         self.upsample_layers = nn.ModuleDict(trans)
@@ -142,16 +201,25 @@ class YOLOv3Head(nn.Module):
     def param_policy(self) -> Dict[str, Any]:
         return param_policy_tree(self)
 
+    def iter_convs(self):
+        """Every ConvNormAct in the JAX ``iter_convs`` order: each block's
+        layers then its tip, the output convs, the transitions."""
+        return (m for m in self.modules() if isinstance(m, ConvNormAct))
+
     def get_outputs(self, body_feats: List[torch.Tensor],
                     generator: Optional[torch.Generator] = None) -> List[torch.Tensor]:
         """Top-down pathway; raw per-level maps, level 0 the coarsest.
-        ``generator`` feeds DropBlock in training."""
+        ``generator`` feeds DropBlock in training; the concats follow
+        ``decompose_mode``."""
+        feats = body_feats[::-1][: self.n_levels]
+        mode = decompose_mode(self.training, feats[0].dtype)
         outputs = []
         route = None
-        for i, block in enumerate(body_feats[::-1][: self.n_levels]):
+        for i, block in enumerate(feats):
             if i > 0:
-                block = torch.cat([route, block], dim=1)
-            route, tip = self.detection_blocks[i](block, generator)
+                block = [route, block] if mode == "on" else torch.cat([route, block], dim=1)
+            route, tip = self.detection_blocks[i](block, generator,
+                                                  decompose=mode in ("on", "inner"))
             outputs.append(self.yolo_output_convs[i](tip))
             if i < self.n_levels - 1:
                 route = upsample_nearest_2x(self.upsample_layers[str(2 * i)](route))

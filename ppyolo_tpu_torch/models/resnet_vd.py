@@ -7,7 +7,9 @@ training), stride inside the 3x3 (``downsample_in3x3``), avg-pool-then-1x1
 projection shortcut, DCNv2 in the ``conv2`` of the stages listed in
 ``dcn_v2_stages``, stage freezing (``freeze_at``) and per-stage LR
 multipliers (``lr_mult_list``).  Child names give the JAX param paths
-(``stage2_0.conv1.conv.weight``).
+(``stage2_0.conv1.conv.weight``); each conv carries the Paddle name the JAX
+model gives it (``conv1_1``, ``res5a_branch2b``), which ``iter_convs``
+yields in the JAX package's order for the ``.pdparams`` converter.
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ class ConvBlock(nn.Module):
     """Bottleneck block with projection shortcut (reference resnet_vd.py:15-57)."""
 
     def __init__(self, in_c, filters, norm, lr=1.0, use_dcn=False, stride=2,
-                 downsample_in3x3=True, is_first=False, freeze_norm=False):
+                 downsample_in3x3=True, is_first=False, freeze_norm=False, paddle_name=""):
         super().__init__()
         f1, f2, f3 = filters
         s1, s2 = (1, stride) if downsample_in3x3 else (stride, 1)
@@ -37,6 +39,8 @@ class ConvBlock(nn.Module):
         self.conv3 = ConvNormAct(f2, f3, 1, act=None, **kw)
         self.conv4 = ConvNormAct(in_c, f3, 1, stride=stride if is_first else 1, act=None,
                                  **kw)
+        _paddle_names(self, paddle_name, ("conv1", "branch2a"), ("conv2", "branch2b"),
+                      ("conv3", "branch2c"), ("conv4", "branch1"))
 
     def forward(self, x):
         y = self.conv3(self.conv2(self.conv1(x)))
@@ -48,13 +52,16 @@ class ConvBlock(nn.Module):
 class IdentityBlock(nn.Module):
     """Bottleneck block with identity shortcut (reference resnet_vd.py:60-87)."""
 
-    def __init__(self, in_c, filters, norm, lr=1.0, use_dcn=False, freeze_norm=False):
+    def __init__(self, in_c, filters, norm, lr=1.0, use_dcn=False, freeze_norm=False,
+                 paddle_name=""):
         super().__init__()
         f1, f2, f3 = filters
         kw = dict(norm=norm, lr_mult=lr, freeze_norm=freeze_norm)
         self.conv1 = ConvNormAct(in_c, f1, 1, act="relu", **kw)
         self.conv2 = ConvNormAct(f1, f2, 3, act="relu", use_dcn=use_dcn, **kw)
         self.conv3 = ConvNormAct(f2, f3, 1, act=None, **kw)
+        _paddle_names(self, paddle_name, ("conv1", "branch2a"), ("conv2", "branch2b"),
+                      ("conv3", "branch2c"))
 
     def forward(self, x):
         return F.relu(self.conv3(self.conv2(self.conv1(x))) + x)
@@ -64,7 +71,7 @@ class BasicBlock(nn.Module):
     """Two-conv residual block of ResNet18-vd (reference resnet_vd.py:224-267)."""
 
     def __init__(self, in_c, filters, norm, lr=1.0, stride=1, is_first=False,
-                 use_dcn=False, freeze_norm=False):
+                 use_dcn=False, freeze_norm=False, paddle_name=""):
         super().__init__()
         f1, f2 = filters
         kw = dict(norm=norm, lr_mult=lr, freeze_norm=freeze_norm)
@@ -75,6 +82,8 @@ class BasicBlock(nn.Module):
         if self.has_shortcut:
             self.conv3 = ConvNormAct(in_c, f2, 1, stride=stride if is_first else 1,
                                      act=None, **kw)
+        _paddle_names(self, paddle_name, ("conv1", "branch2a"), ("conv2", "branch2b"),
+                      ("conv3", "branch1"))
 
     def forward(self, x):
         y = self.conv2(self.conv1(x))
@@ -83,6 +92,17 @@ class BasicBlock(nn.Module):
                 x = avg_pool2d(x, 2, 2)
             x = self.conv3(x)
         return F.relu(y + x)
+
+
+def _paddle_names(block: nn.Module, prefix: str, *pairs) -> None:
+    """``<prefix>_<suffix>`` as the Paddle name of each (child, suffix) the
+    block has (``ppyolo_tpu/models/resnet_vd.py:100-102``)."""
+    for child, suffix in pairs:
+        if hasattr(block, child):
+            getattr(block, child).paddle_name = f"{prefix}_{suffix}"
+
+
+_STAGE_LETTERS = "abcdefghijklmnopqrstuvwxyz"
 
 
 class _Backbone(nn.Module):
@@ -94,9 +114,14 @@ class _Backbone(nn.Module):
 
     def _add_stem(self, norm, freeze_norm):
         for i, (cin, cout) in enumerate([(3, 32), (32, 32), (32, 64)], start=1):
-            setattr(self, f"stage1_conv1_{i}",
-                    ConvNormAct(cin, cout, 3, stride=2 if i == 1 else 1, norm=norm,
-                                act="relu", freeze_norm=freeze_norm))
+            m = ConvNormAct(cin, cout, 3, stride=2 if i == 1 else 1, norm=norm, act="relu",
+                            freeze_norm=freeze_norm)
+            m.paddle_name = f"conv1_{i}"
+            setattr(self, f"stage1_conv1_{i}", m)
+
+    def iter_convs(self):
+        """Every ConvNormAct, stem first, in the JAX ``iter_convs`` order."""
+        return (m for m in self.modules() if isinstance(m, ConvNormAct))
 
     def freeze(self) -> None:
         """Stages <= freeze_at untrainable (reference resnet_vd.py:174-199):
@@ -148,6 +173,7 @@ class ResNet50Vd(_Backbone):
             names = []
             for b in range(n):
                 name = f"stage{stage}_{b}"
+                kw["paddle_name"] = f"res{stage}{_STAGE_LETTERS[b]}"
                 if b == 0:
                     blk = ConvBlock(in_c, filters, norm_type,
                                     stride=1 if stage == 2 else 2,
@@ -185,7 +211,7 @@ class ResNet18Vd(_Backbone):
                     in_c if b == 0 else filters[1], filters, norm_type,
                     lr=lr_mult_list[stage - 2], stride=stride if b == 0 else 1,
                     is_first=stage == 2 and b == 0, use_dcn=stage in dcn_v2_stages,
-                    freeze_norm=freeze_norm))
+                    freeze_norm=freeze_norm, paddle_name=f"res{stage}{_STAGE_LETTERS[b]}"))
             self._stage_blocks[stage] = [f"stage{stage}_0", f"stage{stage}_1"]
         if freeze_at:
             self.freeze()

@@ -1,2 +1,7 @@
 """Tensor ops of the port: conv cell, DCNv2, stem, strided conv, pooling,
-decode, NMS."""
+decode, NMS.
+
+Importing the package registers the ``ppyolo`` operator library
+(``ppyolo::dcn_fwd``, ``ppyolo::fused_stem``, ``ppyolo::nms_keep``), which a
+serving artifact (``eval/export.py``) needs before it loads."""
+from . import deform_conv_cuda, matrix_nms, stem  # noqa: F401  (the ppyolo:: operators)

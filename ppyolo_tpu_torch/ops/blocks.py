@@ -42,10 +42,15 @@ def coord_conv(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([x, g], dim=1)
 
 
+def spp_parts(x: torch.Tensor) -> list:
+    """The SPP pyramid [x, mp5, mp9, mp13] as a list (a virtual concat,
+    ``ConvNormAct.forward_parts``)."""
+    return [x, max_pool2d(x, 5, 1, 2), max_pool2d(x, 9, 1, 4), max_pool2d(x, 13, 1, 6)]
+
+
 def spp(x: torch.Tensor) -> torch.Tensor:
     """Spatial pyramid pooling: concat [x, mp5, mp9, mp13] on channels."""
-    return torch.cat([x, max_pool2d(x, 5, 1, 2), max_pool2d(x, 9, 1, 4),
-                      max_pool2d(x, 13, 1, 6)], dim=1)
+    return torch.cat(spp_parts(x), dim=1)
 
 
 def drop_block(x: torch.Tensor, generator: Optional[torch.Generator] = None, *,

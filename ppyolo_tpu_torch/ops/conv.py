@@ -22,13 +22,18 @@ weight's dtype to ``ops/conv_int8.py::quantized_conv2d`` (K5 on the card).
 ``recording()`` every non-DCN conv puts its input's fp32 abs-max under
 itself (the JAX ``Ctx.record``, ``ops/conv.py:245-247``), for the int8
 calibration.
+
+``forward_parts`` runs the conv over a virtual channel concat (the head's
+``HEAD_DECOMPOSE`` modes, ``ppyolo_tpu/ops/conv.py:328-383``), and
+``paddle_name`` is the layer's name in a Paddle ``.pdparams`` file, set by
+the models as the JAX package sets it (``checkpoint/convert.py``).
 """
 from __future__ import annotations
 
 import contextlib
 import math
 import threading
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -157,6 +162,9 @@ class ConvNormAct(nn.Module):
         self.bn = BatchNorm(cout, sync=norm == "sync_bn") if norm is not None else None
         self._packed = None
         self._packed_key = None
+        self._coord_terms: Dict[tuple, torch.Tensor] = {}
+        self._coord_key = None
+        self.paddle_name = ""
         self.freeze(False)
 
     def freeze(self, flag: bool = True) -> None:
@@ -239,6 +247,8 @@ class ConvNormAct(nn.Module):
                 self.packed_dcn_weight()
             elif self.conv.is_int8:
                 self.packed_int8_weight()
+        if self._coord_terms:
+            self._refresh_coord_terms()
         stem = getattr(self, "_stem_cache", None)
         if stem is not None:
             from .stem import stem_params
@@ -253,9 +263,11 @@ class ConvNormAct(nn.Module):
         if self.use_dcn:
             om = F.conv2d(x, c.conv_offset.weight, c.conv_offset.bias,
                           self.stride, self.padding)
-            # the cached packed weight has no gradient: serving only
+            # the cached packed weight has no gradient: serving only (and
+            # not while torch.export traces: its key reads data pointers)
             packed = (self.packed_dcn_weight()
-                      if x.is_cuda and not needs_grad(x, c.dcn_weight, om) else None)
+                      if x.is_cuda and not needs_grad(x, c.dcn_weight, om)
+                      and not torch.compiler.is_exporting() else None)
             x = deform_conv2d(x, c.dcn_weight, om, stride=self.stride,
                               padding=self.padding, packed_weight=packed)
         elif c.is_int8:
@@ -269,6 +281,97 @@ class ConvNormAct(nn.Module):
         if self.bn is not None:
             x = self.bn(x)
         return apply_act(x, self.act)
+
+    def forward_parts(self, parts: Sequence[torch.Tensor], *, coord: bool = False) -> torch.Tensor:
+        """The layer over the channel concat of ``parts`` without writing
+        it: ``sum_i conv(part_i, W[:, off_i:off_i + c_i])``, the bias, then
+        one norm and activation (``ppyolo_tpu/ops/conv.py::apply_parts``).
+        A batch-1 part broadcasts through the sum.  With ``coord`` the last
+        part is the CoordConv planes (``ops/blocks.py::coord_planes``):
+        fixed for a grid, so outside autograd their term is computed once
+        per (grid, dtype, device) and kept until the weight changes
+        (``refresh_cache`` recomputes it in place).
+
+        Rounding: the partial sums of a bf16 layer are added in fp32 and
+        rounded once, as the JAX package's ``preferred_element_type``
+        does, except that a 3x3 part's conv (cuDNN, which writes bf16) is
+        rounded to bf16 before the fp32 sum.  The 1x1 parts run as one
+        bf16 GEMM with an fp32 output on the card (``torch.mm(...,
+        out_dtype=)``) and as an fp32 conv of the bf16 values on the CPU
+        (exact products, fp32 sums); the coordinate term is an fp32 conv.
+        DCN and int8 weights take the materialized concat, as in JAX.
+        Under ``recording()`` the recorded abs-max is the largest over the
+        parts, the concat's."""
+        if len(parts) == 1:
+            return self(parts[0])
+        c = self.conv
+        if self.use_dcn or c.is_int8:
+            n = max(p.shape[0] for p in parts)
+            return self(torch.cat([p.expand(n, *p.shape[1:]) for p in parts], dim=1))
+        rec = getattr(_RECORD, "rec", None)
+        if rec is not None:
+            rec[self] = torch.stack([p.float().abs().amax() for p in parts]).amax()
+        dt = parts[0].dtype
+        acc = torch.promote_types(dt, torch.float32)
+        w = c.weight
+        y, off = None, 0
+        for i, p in enumerate(parts):
+            pc = p.shape[1]
+            if coord and i == len(parts) - 1:
+                yi = self._coord_term(p, off, acc)
+            else:
+                yi = self._part_conv(p, w[:, off:off + pc], acc)
+            y = yi if y is None else y + yi
+            off += pc
+        if off != self.cin:
+            raise ValueError(f"forward_parts: parts hold {off} channels, the layer takes "
+                             f"{self.cin}")
+        if c.bias is not None:
+            y = y + c.bias.to(acc).view(1, -1, 1, 1)
+        y = y.to(dt)
+        if self.bn is not None:
+            y = self.bn(y)
+        return apply_act(y, self.act)
+
+    def _part_conv(self, p: torch.Tensor, w: torch.Tensor, acc: torch.dtype) -> torch.Tensor:
+        """One part's conv with the sum in ``acc`` (see ``forward_parts``)."""
+        if p.dtype == acc:
+            return F.conv2d(p, w, None, self.stride, self.padding)
+        if self.ksize != 1 or self.stride != 1:
+            return F.conv2d(p, w, None, self.stride, self.padding).to(acc)
+        if p.is_cuda and not needs_grad(p, w):
+            n, ch, h, wd = p.shape
+            y = torch.mm(p.permute(0, 2, 3, 1).reshape(-1, ch), w.reshape(w.shape[0], ch).t(),
+                         out_dtype=acc)
+            return y.view(n, h, wd, -1).permute(0, 3, 1, 2)
+        return F.conv2d(p.to(acc), w.to(acc), None, self.stride, self.padding)
+
+    def _coord_term(self, planes: torch.Tensor, off: int, acc: torch.dtype) -> torch.Tensor:
+        """The CoordConv planes' term of ``forward_parts`` in ``acc``."""
+        w = self.conv.weight
+        if needs_grad(w) or torch.compiler.is_exporting():
+            return F.conv2d(planes.to(acc), w[:, off:].to(acc), None, self.stride, self.padding)
+        if (w.data_ptr(), w._version, w.dtype, w.device) != self._coord_key:
+            self._refresh_coord_terms()
+        key = (tuple(planes.shape), planes.dtype, planes.device, off, acc)
+        t = self._coord_terms.get(key)
+        if t is None:
+            with torch.no_grad():
+                t = self._coord_terms[key] = F.conv2d(
+                    planes.to(acc), w[:, off:].to(acc), None, self.stride, self.padding)
+        return t
+
+    def _refresh_coord_terms(self) -> None:
+        """Recompute every kept coordinate term into its tensor."""
+        from .blocks import coord_planes
+
+        w = self.conv.weight
+        with torch.no_grad():
+            for (shape, dtype, device, off, acc), t in self._coord_terms.items():
+                planes = coord_planes(shape[2], shape[3], dtype, device)
+                store_cached((t,), (F.conv2d(planes.to(acc), w[:, off:].to(acc), None,
+                                             self.stride, self.padding),))
+        self._coord_key = (w.data_ptr(), w._version, w.dtype, w.device)
 
 
 def param_policy_tree(module: nn.Module) -> Dict[str, Any]:

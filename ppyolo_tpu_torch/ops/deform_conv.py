@@ -28,6 +28,12 @@ kernel's contract.  ``operand_dtype`` rounds x, the columns and the weight
 to another dtype instead: bf16 is what the kernels do to an fp32 layer, so
 an fp32 CPU run with it repeats the card's rounding.
 
+``dcn_form`` (the JAX package's ``dcn_impl``) picks what ``deform_conv2d``
+runs: ``auto`` as above; ``plain`` the plain version on any device (the
+portable form of a serving artifact, as JAX exports its ``onehot`` DCN);
+``kernel`` the ``ppyolo::dcn_fwd`` operator (``ops/deform_conv_cuda.py``),
+which ``torch.export`` keeps as one node (K1 on a card).
+
 Offsets arrive as the raw offset/mask conv output ``om`` [N, 3*k2, oH, oW]:
 channels ``[0, 2*k2)`` are the (y, x) offset of each tap, interleaved per
 tap in row-major tap order; channels ``[2*k2, 3*k2)`` are the mask logits.
@@ -37,6 +43,10 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+
+from .module import make_contextvar_override
+
+DCN_FORM, dcn_form = make_contextvar_override("DCN_FORM", ("auto", "plain", "kernel"), "auto")
 
 
 def out_size(size: int, k: int, stride: int, padding: int) -> int:
@@ -259,8 +269,16 @@ def deform_conv2d(x: torch.Tensor, weight: torch.Tensor, om: torch.Tensor, *,
     ``DeformConv2dFunction`` when a gradient is needed, else K1 alone with
     ``packed_weight`` (``pack_dcn_weight(weight)``, which a caller that
     serves the same weight many times computes once).  It raises if a
-    kernel cannot launch."""
-    if x.device.type == "cpu":
+    kernel cannot launch.  ``dcn_form`` overrides the choice (module
+    docstring)."""
+    form = DCN_FORM.get()
+    if form == "kernel":
+        from .deform_conv_cuda import pack_dcn_weight
+
+        kh, kw = weight.shape[2:]
+        packed = pack_dcn_weight(weight, torch.bfloat16 if x.is_cuda else x.dtype)
+        return torch.ops.ppyolo.dcn_fwd(x, om, packed, bias, kh, kw, stride, padding)
+    if x.device.type == "cpu" or form == "plain":
         return deform_conv2d_plain(x, weight, om, stride=stride,
                                    padding=padding, bias=bias)
     if needs_grad(x, weight, om):

@@ -41,13 +41,20 @@ def _bin_cap() -> int:
     return fn()
 
 
-def pack_dcn_weight(weight: torch.Tensor) -> torch.Tensor:
-    """OIHW [outC, C, kh, kw] -> K-major [outC, kh*kw*C] bf16, the rows of
-    K1's wgmma B tiles: column tap * C + c (the flatten order of an HWIO
-    kernel), i.e. the transpose of the ``[k2*C, outC]`` GEMM operand."""
+def pack_dcn_weight(weight: torch.Tensor, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """OIHW [outC, C, kh, kw] -> K-major [outC, kh*kw*C] in ``dtype`` (K1
+    takes bf16), the rows of K1's wgmma B tiles: column tap * C + c (the
+    flatten order of an HWIO kernel), i.e. the transpose of the
+    ``[k2*C, outC]`` GEMM operand."""
     out_c, c, kh, kw = weight.shape
-    return (weight.permute(0, 2, 3, 1).reshape(out_c, kh * kw * c)
-            .to(torch.bfloat16).contiguous())
+    return weight.permute(0, 2, 3, 1).reshape(out_c, kh * kw * c).to(dtype).contiguous()
+
+
+def unpack_dcn_weight(packed: torch.Tensor, ksize: Tuple[int, int]) -> torch.Tensor:
+    """``pack_dcn_weight``'s inverse: [outC, kh*kw*C] -> OIHW, same values."""
+    kh, kw = ksize
+    out_c = packed.shape[0]
+    return packed.reshape(out_c, kh, kw, -1).permute(0, 3, 1, 2)
 
 
 @_build.counted
@@ -166,3 +173,33 @@ def dcn_bwd(x: torch.Tensor, om: torch.Tensor, dm: torch.Tensor, *,
         raise RuntimeError(f"dcn_bwd kernel launch failed: cudaError {err}")
     return dx, d_om, cols
 
+
+
+@torch.library.custom_op("ppyolo::dcn_fwd", mutates_args=())
+def dcn_fwd_op(x: torch.Tensor, om: torch.Tensor, packed_weight: torch.Tensor,
+               bias: Optional[torch.Tensor], kh: int, kw: int, stride: int,
+               padding: int) -> torch.Tensor:
+    """K1 as an operator of the ``ppyolo`` library, the form a
+    ``torch.export`` artifact holds (``eval/export.py``): on a CPU tensor
+    the plain version with the unpacked weight (``packed_weight`` in x's
+    dtype there), on a CUDA tensor ``dcn_fwd`` (K1, counted; it raises
+    where K1 cannot launch)."""
+    from .deform_conv import deform_conv2d_plain
+
+    w = unpack_dcn_weight(packed_weight, (kh, kw))
+    return deform_conv2d_plain(x, w, om, stride=stride, padding=padding, bias=bias)
+
+
+@dcn_fwd_op.register_kernel("cuda")
+def _dcn_fwd_cuda(x, om, packed_weight, bias, kh, kw, stride, padding):
+    cl = torch.channels_last
+    return dcn_fwd(x.contiguous(memory_format=cl), om.contiguous(memory_format=cl),
+                   packed_weight, bias, ksize=(kh, kw), stride=stride, padding=padding)
+
+
+@dcn_fwd_op.register_fake
+def _dcn_fwd_fake(x, om, packed_weight, bias, kh, kw, stride, padding):
+    n, _, h, w = x.shape
+    return torch.empty((n, packed_weight.shape[0], out_size(h, kh, stride, padding),
+                        out_size(w, kw, stride, padding)), dtype=x.dtype, device=x.device,
+                       memory_format=torch.channels_last)

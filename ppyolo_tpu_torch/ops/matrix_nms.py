@@ -9,7 +9,8 @@ is ``nms_keep``: the plain version (the [B, k, k] suppress matrix and the
 JAX package's fixpoint iteration, eagerly) for a CPU tensor, the Hopper
 kernel K6 (``csrc/nms_keep.cu``, which computes its own IoUs from the
 candidates' boxes) for a CUDA tensor; ``nms_keep.launches`` counts K6's
-launches.
+launches.  ``multiclass_nms`` calls it as the ``ppyolo::nms_keep``
+operator, so ``torch.export`` can hold it (``eval/export.py``).
 
 ``lax.top_k`` breaks ties by the lowest index; ``torch.topk`` promises no
 order for ties (and bf16 scores tie often).  ``_topk`` therefore selects
@@ -213,6 +214,20 @@ def nms_keep(valid: torch.Tensor, boxes: torch.Tensor, labels: torch.Tensor,
     return keep
 
 
+@torch.library.custom_op("ppyolo::nms_keep", mutates_args=())
+def nms_keep_op(valid: torch.Tensor, boxes: torch.Tensor, labels: torch.Tensor,
+                nms_threshold: float) -> torch.Tensor:
+    """``nms_keep`` as an operator of the ``ppyolo`` library: its plain
+    version's fixpoint loop ends on the data, which ``torch.export`` cannot
+    trace, so a serving artifact holds this node (K6 on a card)."""
+    return nms_keep(valid, boxes, labels, nms_threshold)
+
+
+@nms_keep_op.register_fake
+def _nms_keep_fake(valid, boxes, labels, nms_threshold):
+    return torch.empty_like(valid)
+
+
 def multiclass_nms(boxes: torch.Tensor, scores: torch.Tensor,
                    nms_cfg: Dict[str, Any]) -> torch.Tensor:
     """Batched per-class greedy hard NMS (``matrix_nms.py:146-215``).
@@ -236,7 +251,7 @@ def multiclass_nms(boxes: torch.Tensor, scores: torch.Tensor,
     valid = vals > thr
     labels = idx % c
     cand = _take(boxes, idx // c)                                 # [B, k, 4]
-    keep = nms_keep(valid, cand, labels.int(), nms_thr)
+    keep = torch.ops.ppyolo.nms_keep(valid, cand, labels.int(), nms_thr)
     # kept rows with non-positive scores (a negative threshold) stay valid
     final = torch.where(keep, vals, float("-inf"))
     out_vals, out_idx = _topk(final, min(keep_top_k, k))

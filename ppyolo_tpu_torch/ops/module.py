@@ -1,4 +1,5 @@
-"""Tree helpers, the device rule, the optimizer policy and BatchNorm.
+"""Tree helpers, the device rule, the optimizer policy, mode overrides and
+BatchNorm.
 
 The port's ``state_dict`` keys are the JAX package's param-tree dotted
 paths exactly (``backbone.stage2_0.conv1.conv.weight``,
@@ -57,6 +58,34 @@ def unflatten_tree(flat: Dict[str, Any]) -> Dict[str, Any]:
             node = node.setdefault(seg, {})
         node[segs[-1]] = v
     return tree
+
+
+def make_contextvar_override(name: str, allowed: tuple, default: str):
+    """A (ContextVar, context manager) pair for a mode read while a forward
+    is traced or captured (``ppyolo_tpu/ops/module.py:134``): a ContextVar,
+    not a module global, so another thread's override is never seen
+    mid-forward.  The head's virtual-concat mode uses it
+    (``models/head.py::head_decompose``)."""
+    import contextvars
+
+    var = contextvars.ContextVar(name, default=default)
+
+    class _override:
+        def __init__(self, value: str):
+            if value not in allowed:
+                raise ValueError(f"{name}: {value!r} is not one of {allowed}")
+            self.value = value
+
+        def __enter__(self):
+            self._token = var.set(self.value)
+            return self
+
+        def __exit__(self, *exc):
+            var.reset(self._token)
+            return False
+
+    _override.__name__ = _override.__qualname__ = name.lower() + "_override"
+    return var, _override
 
 
 _CONSTANTS: Dict[tuple, torch.Tensor] = {}
@@ -197,19 +226,26 @@ class BatchNorm(nn.Module):
         return torch.addcmul(b, x, k)
 
     def eval_affine(self, dtype: torch.dtype):
-        """(k, b) of the eval pass in ``dtype``, each [1, C, 1, 1]."""
+        """(k, b) of the eval pass in ``dtype``, each [1, C, 1, 1]; computed
+        in the program, not cached, while torch.export traces it (under the
+        caller's ``no_grad``: a grad-mode switch per layer makes the export
+        slow)."""
+        if torch.compiler.is_exporting():
+            return self._affine_of(dtype)
         ts = (self.weight, self.bias, self.running_mean, self.running_var)
         key = (dtype,) + tuple((t.data_ptr(), t._version) for t in ts)
         if key != self._affine_key:
-            acc = torch.promote_types(dtype, torch.float32)
             with torch.no_grad():
-                k = self.weight.to(acc) * torch.rsqrt(self.running_var.to(acc) + BN_EPS)
-                b = self.bias.to(acc) - self.running_mean.to(acc) * k
-            shape = (1, -1, 1, 1)
-            self._affine = store_cached(self._affine,
-                                        (k.to(dtype).view(shape), b.to(dtype).view(shape)))
+                self._affine = store_cached(self._affine, self._affine_of(dtype))
             self._affine_key = key
         return self._affine
+
+    def _affine_of(self, dtype: torch.dtype):
+        acc = torch.promote_types(dtype, torch.float32)
+        k = self.weight.to(acc) * torch.rsqrt(self.running_var.to(acc) + BN_EPS)
+        b = self.bias.to(acc) - self.running_mean.to(acc) * k
+        shape = (1, -1, 1, 1)
+        return k.to(dtype).view(shape), b.to(dtype).view(shape)
 
     def refresh_cache(self) -> None:
         if self._affine is not None:

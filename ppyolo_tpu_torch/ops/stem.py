@@ -15,6 +15,13 @@ the kernel's launches.
 The kernel reads its parameters in its own layout (``pack_stem_params``).
 ``apply_stem`` folds BN and packs once per set of parameter values and
 keeps the result on the first stem module, so a served batch pays neither.
+
+``stem_form`` (the JAX package's ``stem_impl``) picks what ``apply_stem``
+runs where the kernel is eligible: ``auto`` as above; ``plain`` the
+unfused chain (the portable form of a serving artifact, as JAX exports its
+``xla`` stem); ``kernel`` the ``ppyolo::fused_stem`` operator, which
+``torch.export`` keeps as one node (K2 on a card, the plain version on the
+CPU), its folded and packed parameters computed in the program.
 """
 from __future__ import annotations
 
@@ -26,9 +33,10 @@ import torch.nn.functional as F
 
 from . import _build
 from .blocks import max_pool2d
-from .module import BN_EPS, store_cached
+from .module import BN_EPS, make_contextvar_override, store_cached
 from .strided_conv import pack_conv_s2_weight
 
+STEM_FORM, stem_form = make_contextvar_override("STEM_FORM", ("auto", "plain", "kernel"), "auto")
 STEM_SHAPES = [(3, 32, 2), (32, 32, 1), (32, 64, 1)]  # (cin, cout, stride)
 
 
@@ -160,9 +168,33 @@ def stem_params(mods: Sequence):
     return cache[1], cache[2]
 
 
+@torch.library.custom_op("ppyolo::fused_stem", mutates_args=())
+def fused_stem_op(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+                  b2: torch.Tensor, w3: torch.Tensor, b3: torch.Tensor, p1: torch.Tensor,
+                  p2: torch.Tensor, p3: torch.Tensor, p4: torch.Tensor) -> torch.Tensor:
+    """K2 as an operator of the ``ppyolo`` library (``eval/export.py``):
+    ``fused_stem`` with the folded parameters and their ``pack_stem_params``
+    (p1..p4): the plain version on a CPU tensor, K2 (counted) on a CUDA
+    tensor."""
+    return fused_stem(x, w1, b1, w2, b2, w3, b3, packed=(p1, p2, p3, p4))
+
+
+@fused_stem_op.register_fake
+def _fused_stem_fake(x, w1, b1, w2, b2, w3, b3, p1, p2, p3, p4):
+    n, _, h, w = x.shape
+    s2h, s2w = (h - 1) // 2 + 1, (w - 1) // 2 + 1
+    return torch.empty((n, 64, (s2h - 1) // 2 + 1, (s2w - 1) // 2 + 1), dtype=x.dtype,
+                       device=x.device, memory_format=torch.channels_last)
+
+
 def apply_stem(mods: Sequence, x: torch.Tensor) -> torch.Tensor:
-    """conv1_1..conv1_3 (+BN +relu) + max-pool: fused where eligible."""
-    if stem_eligible(mods, x):
+    """conv1_1..conv1_3 (+BN +relu) + max-pool: fused where eligible (and
+    ``stem_form`` is not ``plain``)."""
+    form = STEM_FORM.get()
+    if form == "kernel" and stem_eligible(mods, x):
+        folded = [t for m in mods for t in fold_eval_bn(m)]
+        return torch.ops.ppyolo.fused_stem(x, *folded, *pack_stem_params(*folded))
+    if form == "auto" and stem_eligible(mods, x):
         folded, packed = stem_params(mods)
         return fused_stem(x, *folded, packed=packed)
     for m in mods:

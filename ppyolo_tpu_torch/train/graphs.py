@@ -57,6 +57,21 @@ share one memory pool: only one of them runs at a time, so they can share
 their temporaries, and the pool peaks at the largest unit instead of the
 sum over shapes.  The price: a graph's outputs are valid until the next
 replay of any graph in the pool; read (or copy) them before that.
+
+A pool's (``GraphPool``'s) memory is never freed (no ``cudaFree``).  After any
+torch.profiler session, freeing the segments of a destroyed graph's pool
+(``torch.cuda.empty_cache()``, which every capture also calls) made the
+next profiled replay of a graph that was still alive segfault inside
+CUPTI's graph-launch callback (``cuGraphLaunch`` -> libcupti -> libcuda;
+torch 2.11, CUDA 12.8, H100), whether or not the graphs shared a
+generator, also when the destroyed graphs' objects were kept and only
+``reset``; with the segments kept, no replay crashed
+(``tools/graph_teardown.py`` reproduces it).  So each pool holds an empty
+graph of its own for the life of the process, and a pool that nothing
+refers to any more goes back, with its segments and its capture stream,
+to a spare list that the next ``GraphPool.get`` takes from: a destroyed
+or released graph's memory is reused by the next capture instead of
+freed.
 """
 from __future__ import annotations
 
@@ -81,6 +96,68 @@ def keep_cupti_set_up() -> None:
     variables torch's profiler sets for graphs captured by inductor)."""
     os.environ["DISABLE_CUPTI_LAZY_REINIT"] = "1"
     os.environ["TEARDOWN_CUPTI"] = "0"
+
+
+_SPARE_POOLS: Dict[torch.device, list] = {}
+
+
+def _capture_mode() -> str:
+    return "thread_local" if dist.active() else "global"
+
+
+class _NoGC:
+    """No garbage collection while capturing: a dead reference cycle that
+    holds another CUDA graph (a Detector's graphs refer back to it) would
+    call into CUDA from the graph's destructor on this thread and
+    invalidate the capture.  Collects first."""
+
+    def __enter__(self):
+        gc.collect()
+        self.was_on = gc.isenabled()
+        gc.disable()
+
+    def __exit__(self, *exc):
+        if self.was_on:
+            gc.enable()
+        return False
+
+
+class GraphPool:
+    """A memory pool that CUDA graphs share, with the side stream they are
+    captured on (the pool's free blocks serve later captures on the same
+    stream).  ``GraphPool.get(device)`` gives a spare pool of the device or
+    a new one; a pool goes back to the spare list when nothing refers to
+    it.  An empty graph captured into the pool keeps it alive for the life
+    of the process, so its segments are never freed (module docstring)."""
+
+    def __init__(self, device: torch.device, parts):
+        self.device = device
+        self.handle, self.stream, self._anchor = parts
+
+    @classmethod
+    def get(cls, device) -> "GraphPool":
+        device = torch.device(device)
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        spare = _SPARE_POOLS.setdefault(device, [])
+        if spare:
+            return cls(device, spare.pop())
+        handle = torch.cuda.graph_pool_handle()
+        stream = torch.cuda.Stream(device)
+        marker = torch.zeros(1, device=device)
+        anchor = torch.cuda.CUDAGraph()
+        stream.wait_stream(torch.cuda.current_stream(device))
+        with _NoGC(), torch.cuda.graph(anchor, pool=handle, stream=stream,
+                                       capture_error_mode=_capture_mode()):
+            marker.add_(1)
+        return cls(device, (handle, stream, (anchor, marker)))
+
+    def __del__(self):
+        try:
+            _SPARE_POOLS.setdefault(self.device, []).append(
+                (self.handle, self.stream, self._anchor))
+        except Exception:   # interpreter shutdown
+            pass
 
 
 def _flat(inputs: Inputs):
@@ -114,8 +191,8 @@ class Graphs:
 
     ``state()`` returns the live tensors ``fn`` changes in place (a warm-up
     run's changes to them are undone); ``generators`` are the generators
-    ``fn`` draws from; ``pool`` is a ``torch.cuda.graph_pool_handle()`` to
-    share with other ``Graphs`` (default: one of its own); ``model`` is
+    ``fn`` draws from; ``pool`` is a ``GraphPool`` to share with other
+    ``Graphs`` (default: one of its own); ``model`` is
     the module whose parameter-derived caches ``fn`` reads.  ``captures``
     holds the capture seconds by shape key.  Each capture first runs ``fn``
     WARMUP_ITERS times eagerly.  ``capture=False`` runs ``fn`` eagerly on a
@@ -141,8 +218,8 @@ class Graphs:
         self._versions = None
         if self.captures_graphs:
             keep_cupti_set_up()
-            self.pool = torch.cuda.graph_pool_handle() if pool is None else pool
-            self.stream = torch.cuda.Stream(self.device)
+            self.pool = GraphPool.get(self.device) if pool is None else pool
+            self.stream = self.pool.stream
 
     def _snapshot(self):
         tensors = self.state() if self.state is not None else {}
@@ -182,22 +259,9 @@ class Graphs:
             for g in self.generators:
                 graph.register_generator_state(g)
             before = {fn: fn.captured for fn in _build.COUNTED}
-            mode = "thread_local" if dist.active() else "global"
-            # A dead reference cycle that holds another CUDA graph (a
-            # Detector's graphs refer back to it) must not be collected
-            # mid-capture: the graph's destructor calls into CUDA on this
-            # thread and invalidates the capture.  Collect it now, and let
-            # no collection run while capturing.
-            gc.collect()
-            gc_on = gc.isenabled()
-            gc.disable()
-            try:
-                with torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
-                                      capture_error_mode=mode):
-                    out = self.fn(static)
-            finally:
-                if gc_on:
-                    gc.enable()
+            with _NoGC(), torch.cuda.graph(graph, pool=self.pool.handle, stream=self.stream,
+                                           capture_error_mode=_capture_mode()):
+                out = self.fn(static)
             recorded = {fn: fn.captured - before.get(fn, 0) for fn in _build.COUNTED}
             self.graphs[key] = (graph, static, out, {f: n for f, n in recorded.items() if n})
             torch.cuda.synchronize(self.device)
@@ -221,8 +285,8 @@ class Graphs:
     def release(self) -> None:
         """Free every captured graph, its static inputs and its outputs,
         after the work queued on the graphs' and the caller's streams is
-        done.  The blocks go back to the shared pool, where the next capture
-        in it reuses them; later calls capture anew."""
+        done.  The blocks go back to the pool, where the next capture in it
+        reuses them; later calls capture anew."""
         if self.captures_graphs and self.graphs:
             torch.cuda.current_stream(self.device).synchronize()
             self.stream.synchronize()

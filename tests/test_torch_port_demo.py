@@ -5,7 +5,9 @@ on a few synthetic COCO jpgs (``data/synthetic.py``); ``configs.get_config``
 is pointed at it so each entry's ``main`` runs as a user runs it.
 
 * ``entry.demo.main`` at fp32 and int8: every image detected and drawn into
-  ``--out_dir``, the counts and fps returned; ``.pt`` weights raise.
+  ``--out_dir``, the counts and fps returned; a ``.pt`` that holds no
+  state dict raises (``.pt`` weights load through the converter:
+  ``tests/test_torch_port_convert.py``).
 * ``entry.test_dev.main`` writes the submission json of ``cfg.test_path``
   equal to the JAX package's ``eval.run_eval(type_="test_dev")`` on the same
   weights at fp32, with ``multiclass_nms``: the same rows in the same order, categories and image
@@ -92,8 +94,10 @@ def test_demo_detects_and_draws_every_image(config0, dataset, tmp_path, precisio
 
 
 def test_demo_refuses_pt_weights(dataset, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        demo_entry.run_demo(_cfg(dataset, "ppyolo_2x.pt"), dataset[2], str(tmp_path),
+    bad_pt = tmp_path / "ppyolo_2x.pt"
+    bad_pt.write_bytes(b"not a torch file")
+    with pytest.raises(ValueError, match="not a torch state dict"):
+        demo_entry.run_demo(_cfg(dataset, str(bad_pt)), dataset[2], str(tmp_path),
                             device="cpu")
     with pytest.raises(FileNotFoundError):
         demo_entry.run_demo(_cfg(dataset, "missing.npz"), str(tmp_path), str(tmp_path),

@@ -280,28 +280,33 @@ def test_run_eval_returns_stats_and_draws(dataset, trained, tmp_path):
 @pytest.mark.parametrize("case", ["ndev", "orbax", "pt_weights", "eval_ndev", "eval_pt_weights",
                                   "distributed_eval", "cli_ndev"])
 def test_inputs_not_ported_raise(dataset, tmp_path, case):
-    """The inputs the port refuses, before any file is written: ``.pt``
-    weights (not ported), an ``ndev`` other than the world size (1 without
-    a process group), a checkpoint backend other than npz/orbax, and a
-    distributed eval without a group."""
+    """The inputs the port refuses, before any file is written: a ``.pt``
+    weights file that holds no torch state dict (``.pt`` weights load through
+    the converter: ``test_pt_weights_load_through_the_entries``), an
+    ``ndev`` other than the world size (1 without a process group), a
+    checkpoint backend other than npz/orbax, and a distributed eval without
+    a group."""
     cfg = entry_cfg(dataset)
     wdir = str(tmp_path)
+    bad_pt = str(tmp_path / "ppyolo_2x.pt")
+    with open(bad_pt, "wb") as f:
+        f.write(b"not a torch file")
     calls = {
         "ndev": lambda: train_entry.run_training(cfg, weights_dir=wdir, device="cpu", ndev=2),
         "orbax": lambda: train_entry.run_training(
             entry_cfg(dataset, ckpt_backend="tensorstore"), weights_dir=wdir, device="cpu"),
         "pt_weights": lambda: train_entry.run_training(
-            entry_cfg(dataset, model_path="ppyolo_2x.pt"), weights_dir=wdir, device="cpu"),
+            entry_cfg(dataset, model_path=bad_pt), weights_dir=wdir, device="cpu"),
         "eval_ndev": lambda: eval_entry.run_eval(cfg, device="cpu", ndev=2, result_dir=wdir),
         "eval_pt_weights": lambda: eval_entry.run_eval(
-            _with_eval_model(cfg, "ppyolo_2x.pt"), device="cpu", result_dir=wdir),
+            _with_eval_model(cfg, bad_pt), device="cpu", result_dir=wdir),
         "distributed_eval": lambda: coco_eval(None, [], "", "", 1, result_dir=wdir,
                                               distributed=True),
         "cli_ndev": lambda: train_entry.main(["--config", "1", "--use_gpu", "false",
                                               "--ndev", "2"]),
     }
-    raises = {"pt_weights": (NotImplementedError, "ROADMAP"),
-              "eval_pt_weights": (NotImplementedError, "ROADMAP"),
+    raises = {"pt_weights": (ValueError, "not a torch state dict"),
+              "eval_pt_weights": (ValueError, "not a torch state dict"),
               "orbax": (ValueError, "tensorstore"),
               "distributed_eval": (ValueError, "process group")}
     exc, match = raises.get(case, (ValueError, "--ndev 2 differs from the world size 1"))

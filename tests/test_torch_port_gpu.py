@@ -5,7 +5,10 @@ skips without one.  Imports torch and numpy only (no JAX), so it runs on the
 GPU machine: ``python -m pytest tests/test_torch_port_gpu.py -m gpu``.
 Tolerance: max-abs error <= 2% of the plain output's max-abs (bf16 operands).
 """
+import json
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -617,6 +620,99 @@ def test_replays_outlive_destroyed_graphs_that_shared_their_generator():
     assert torch.equal(gen_g.get_state(), gen_e.get_state())
 
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model", ["mini2x", "2x"])
+def test_profiled_replay_after_destroyed_graphs_freed_their_memory(model):
+    """ROADMAP §3 fault 1 (settled), reproduced by
+    ``tools/graph_teardown.py`` in a subprocess, so a segfault fails this
+    test instead of ending pytest: a profiler session, a one-step and a
+    multi-step unit captured on one generator, the multi-step unit
+    destroyed and ``empty_cache()``, then six profiled replays of the
+    one-step unit.  Before ``GraphPool`` kept the pools' segments, the
+    mini-2x program segfaulted in its second profiled replay and the
+    ppyolo_2x@608 b8 one in some runs."""
+    _cuda_or_skip()
+    args = (["--model", "mini2x", "--size", "96", "--batch", "2", "--steps", "2"]
+            if model == "mini2x" else [])
+    r = subprocess.run([sys.executable, "-m", "ppyolo_tpu_torch.tools.graph_teardown",
+                        *args, "--sessions", "6"], cwd=REPO, capture_output=True, text=True,
+                       timeout=600)
+    assert r.returncode == 0, (r.returncode, r.stderr[-3000:])
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    assert out["ok"] and len(out["k1_per_session"]) == 6 and min(out["k1_per_session"]) > 0
+
+
+@pytest.mark.gpu
+def test_head_modes_capture_graphs_of_their_own():
+    """bf16 mini-2x serving at 96 px under each ``head_decompose`` mode: a
+    graph of its own per mode (the Detector keys its graphs by the mode),
+    each replay bitwise its mode's eager forward; ``inner`` and ``on``
+    within 2e-2 (relative L2) of ``off`` on the raw maps."""
+    from ppyolo_tpu_torch.eval.detector import Detector
+    from ppyolo_tpu_torch.models import PPYOLO
+    from ppyolo_tpu_torch.models.head import head_decompose
+
+    _cuda_or_skip()
+    cfg = _mini2x_cfg()
+    sd = PPYOLO.from_config(cfg).init_parameters(torch.Generator().manual_seed(0)).state_dict()
+    det = Detector(PPYOLO.from_config(cfg), sd, cfg, target_size=96, precision="bf16")
+    r = np.random.RandomState(3)
+    images = r.randint(0, 256, (2, 96, 96, 3)).astype(np.uint8)
+    sizes = np.array([[480, 640], [96, 96]], np.float32)
+    x = det.normalize(torch.from_numpy(images).cuda())
+    maps = {}
+    for mode in ("off", "inner", "on"):
+        with head_decompose(mode), torch.no_grad():
+            got = det.predict_batch(images, sizes)
+            want = det.model.predict(x, torch.from_numpy(sizes).cuda()).cpu().numpy()
+            maps[mode] = [m.float() for m in det.model.outputs(x)]
+        np.testing.assert_array_equal(got, want)
+    assert sorted(key[1] for key in det._graphs) == ["inner", "off", "on"]
+    for mode in ("inner", "on"):
+        for a, b in zip(maps[mode], maps["off"]):
+            assert float((a - b).norm() / b.norm()) <= 2e-2, mode
+
+
+@pytest.mark.gpu
+def test_kernel_form_artifact_launches_k1_and_k2():
+    """A bf16 mini-2x artifact in the kernel form on the card: K1 once a
+    DCN and K2 once a call, through the ``ppyolo::`` operators, detections
+    equal to ``predict_batch``; the plain form launches neither."""
+    from ppyolo_tpu_torch.eval.detector import Detector
+    from ppyolo_tpu_torch.eval.export import export_detector, load_serving
+    from ppyolo_tpu_torch.models import PPYOLO
+    from ppyolo_tpu_torch.ops.conv import ConvNormAct
+
+    _cuda_or_skip()
+    cfg = _mini2x_cfg()
+    model = PPYOLO.from_config(cfg).init_parameters(torch.Generator().manual_seed(0))
+    n_dcn = sum(m.use_dcn for m in model.modules() if isinstance(m, ConvNormAct))
+    det = Detector(model, model.state_dict(), cfg, target_size=96, precision="bf16")
+    r = np.random.RandomState(4)
+    images = r.randint(0, 256, (2, 96, 96, 3)).astype(np.uint8)
+    sizes = np.array([[480, 640], [96, 96]], np.float32)
+    want = det.predict_batch(images, sizes)
+    for form, per_call in (("kernel", (n_dcn, 1)), ("plain", (0, 0))):
+        serve = load_serving(export_detector(det, batch=2, dcn=form, stem=form))
+        serve(images, sizes)
+        before = (deform_conv_launches(), fused_stem.launches)
+        got = serve(images, sizes)
+        torch.cuda.synchronize()
+        assert (deform_conv_launches() - before[0], fused_stem.launches - before[1]) == per_call
+        if form == "kernel":
+            np.testing.assert_array_equal(got[..., 0], want[..., 0])
+            np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+def deform_conv_launches():
+    from ppyolo_tpu_torch.ops.deform_conv_cuda import dcn_fwd
+
+    return dcn_fwd.launches
+
+
 @pytest.mark.gpu
 def test_int8_refreshes_free_the_graphs_they_replace():
     """Ten int8 refreshes of a mini-2x Detector at 96 px, ``set_params``
@@ -651,7 +747,7 @@ def test_int8_refreshes_free_the_graphs_they_replace():
         outs.append(got)
         torch.cuda.synchronize()
         reserved.append(torch.cuda.memory_reserved())
-        assert list(det._graphs) == [1]
+        assert [key[0] for key in det._graphs] == [1]     # (group, head mode, forms)
     assert reserved[9] <= reserved[1], reserved
     assert not hasattr(det, "_retired")
     assert not np.array_equal(outs[0], outs[2])
@@ -691,7 +787,7 @@ def test_graphed_predicts_are_bitwise_eager_and_follow_set_params():
             det.predict_pipelined(images, sizes, group=2),
             np.concatenate([det.predict_batch(images[:2], sizes[:2]),
                             det.predict_batch(images[2:], sizes[2:])]))
-    assert set(det._graphs) == {1, 2}
+    assert {key[0] for key in det._graphs} == {1, 2}    # (group, head mode, forms)
 
 
 @pytest.mark.gpu
@@ -1118,7 +1214,7 @@ def test_int8_detector_graphed_is_bitwise_eager(nms_type):
             assert (got[..., 0] >= 0).any()
             np.testing.assert_array_equal(got, want)
             outs.append(got)
-        assert not hasattr(det, "_retired") and list(det._graphs) == [1]
+        assert not hasattr(det, "_retired") and [key[0] for key in det._graphs] == [1]
         assert not np.array_equal(outs[0], outs[2])
         assert plain_calls == []
     finally:
