@@ -97,6 +97,7 @@ def main(argv: Optional[list] = None, type_: str = "eval"):
 
 
 if __name__ == "__main__":
-    logging.basicConfig(level=logging.INFO, format="%(asctime)s-%(levelname)s: %(message)s",
-                        datefmt="%Y-%m-%d %H:%M:%S")
+    from ..utils.logger import setup_logger
+
+    setup_logger()
     main()

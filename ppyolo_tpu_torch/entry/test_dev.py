@@ -8,7 +8,6 @@ Detects every image of ``cfg.test_path`` and writes
 """
 from __future__ import annotations
 
-import logging
 from typing import Optional
 
 from .eval import main as eval_main
@@ -19,6 +18,7 @@ def main(argv: Optional[list] = None):
 
 
 if __name__ == "__main__":
-    logging.basicConfig(level=logging.INFO, format="%(asctime)s-%(levelname)s: %(message)s",
-                        datefmt="%Y-%m-%d %H:%M:%S")
+    from ..utils.logger import setup_logger
+
+    setup_logger()
     main()

@@ -176,7 +176,7 @@ def run_training(cfg, *, weights_dir: str = "./weights", device=None,
     def on_log(it, losses, info):
         log_row({"iter": it, "time": time.time(), **losses, "size": info["size"],
                  "step_s": info["step_s"], "imgs_per_sec": info["imgs_per_sec"],
-                 "tflops": None, "mfu": None})   # utils/mfu is not ported
+                 "tflops": info["tflops"], "mfu": info["mfu"]})
 
     def after_step(st: TrainState):
         nonlocal eval_det, best_ap
@@ -268,6 +268,7 @@ def main(argv: Optional[list] = None) -> TrainState:
 
 
 if __name__ == "__main__":
-    logging.basicConfig(level=logging.INFO, format="%(asctime)s-%(levelname)s: %(message)s",
-                        datefmt="%Y-%m-%d %H:%M:%S")
+    from ..utils.logger import setup_logger
+
+    setup_logger()
     main()

@@ -25,7 +25,11 @@ ppyolo_tpu_torch.ops`` (``load_serving`` does it), and the kernels build
 from this package's sources at their first call on a card.  Multiclass
 NMS's greedy keep is always the ``ppyolo::nms_keep`` node (its plain
 fixpoint ends on the data, which ``torch.export`` cannot trace; K6 on a
-card).  int8 is not exported (the JAX tool offers fp32 and bf16 only).
+card).  An int8 Detector exports too, as the JAX ``export_detector``
+does: each int8 conv is a ``ppyolo::quantized_conv2d`` node (K5 on a card)
+fed its calibrated scale, or the dynamic one computed in the program; the
+CLI (``tools/export_serving.py``) offers fp32 and bf16, as the JAX
+package's does.
 """
 from __future__ import annotations
 
@@ -55,10 +59,6 @@ def export_detector(detector, *, batch: int, dcn: str = "plain", stem: str = "pl
     from ..ops.deform_conv import dcn_form
     from ..ops.stem import stem_form
 
-    if detector.precision not in ("fp32", "bf16"):
-        raise NotImplementedError(
-            "serving artifacts are fp32 or bf16; int8 export is not ported "
-            "(ROADMAP §1 item 17)")
     size, dev = detector.target_size, detector.device
     args = (torch.zeros((batch, size, size, 3), dtype=torch.uint8, device=dev),
             torch.full((batch, 2), float(size), dtype=torch.float32, device=dev))

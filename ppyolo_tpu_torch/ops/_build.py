@@ -15,9 +15,16 @@ launches of its kernel and ``fn.captured`` the calls that a CUDA graph
 recorded instead (a capture launches nothing).  ``train/graphs.py`` adds a
 graph's recorded calls to ``launches`` at each replay, which is where those
 kernels launch.
+
+Where a kernel's place in a program is reached -- the kernel launched on
+a card, or its plain version run on the CPU -- its wrapper reports the
+call with its FLOPs (``note_call``) to every open ``recording_calls()``
+block: ``utils/mfu.py`` adds the launched kernels' FLOPs to what
+``FlopCounterMode`` counts.  With no block open a report costs one test.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -60,6 +67,34 @@ def note_launch(fn: Callable) -> None:
         fn.captured += 1
     else:
         fn.launches += 1
+
+
+_RECORDERS: List[list] = []   # the open recording_calls() blocks' lists
+
+
+def recording() -> bool:
+    """Is a ``recording_calls()`` block open (so a wrapper should report)?"""
+    return bool(_RECORDERS)
+
+
+def note_call(name: str, flops: float, launched: bool) -> None:
+    """Report a call of kernel ``name`` (``launched``: the kernel ran; else its
+    plain version did) with its FLOPs (``utils/mfu.py``'s formula) to every
+    open ``recording_calls()`` block.  Any thread: a backward reports from
+    autograd's device thread."""
+    for rec in _RECORDERS:
+        rec.append((name, float(flops), bool(launched)))
+
+
+@contextlib.contextmanager
+def recording_calls():
+    """Yields the list that the kernel calls inside the block fill, in order."""
+    calls: list = []
+    _RECORDERS.append(calls)
+    try:
+        yield calls
+    finally:
+        _RECORDERS.remove(calls)
 
 
 def nvcc_path() -> str:

@@ -1,12 +1,15 @@
-"""ConvNormAct: conv or DCNv2, then BN, then the activation.
+"""ConvNormAct: conv or DCNv2, then the norm, then the activation.
 
 Counterpart of ``ppyolo_tpu/ops/conv.py::ConvNormAct``, with its optimizer
 policy (``param_policy``) and freeze flag.  Parameter names give the JAX
 param tree's paths:
 ``conv.weight`` / ``conv.bias`` for a dense conv, ``conv.dcn_weight`` and
 ``conv.conv_offset.{weight,bias}`` for DCNv2, ``bn.{weight,bias,
-running_mean,running_var}`` for BN; ``norm="sync_bn"`` averages the batch
-statistics over the ranks of a process group (``ops/module.py::BatchNorm``).
+running_mean,running_var}`` for BN, ``gn.{weight,bias}`` for GroupNorm (32
+groups by default) and ``af.{weight,bias}`` for affine_channel;
+``norm="sync_bn"`` averages the batch statistics over the ranks of a
+process group (``ops/module.py::BatchNorm``).  The activations are relu,
+leaky (0.1) and mish.
 Weights are OIHW; activations NCHW in ``channels_last`` memory.  Dense
 convs go to ``F.conv2d`` (cuDNN on the card), as the JAX package leaves
 them to XLA; DCNv2 goes to ``ops/deform_conv.py::deform_conv2d`` (the
@@ -39,9 +42,24 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .conv_int8 import pack_int8_weight, quantized_conv2d
+from .conv_int8 import dynamic_act_scale, pack_int8_weight, quantized_conv2d
 from .deform_conv import deform_conv2d, needs_grad
-from .module import BatchNorm, ParamPolicy, flatten_tree, store_cached, unflatten_tree
+from .module import (AffineChannel, BatchNorm, GroupNorm, ParamPolicy, flatten_tree,
+                     store_cached, unflatten_tree)
+
+NORMS = (None, "bn", "sync_bn", "gn", "affine_channel")
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``, i.e. ``jnp.logaddexp(x, 0)`` op by op:
+    ``max(x, 0) + log1p(exp(-|x|))``.  (``F.softplus`` returns x itself
+    past its threshold of 20; this form never switches.)"""
+    return F.relu(x) + torch.log1p(torch.exp(-x.abs()))
+
+
+def mish(x: torch.Tensor) -> torch.Tensor:
+    """``x * tanh(softplus(x))`` (``ppyolo_tpu/ops/conv.py::mish``)."""
+    return x * torch.tanh(softplus(x))
 
 
 def apply_act(x: torch.Tensor, act: Optional[str]) -> torch.Tensor:
@@ -51,6 +69,8 @@ def apply_act(x: torch.Tensor, act: Optional[str]) -> torch.Tensor:
         return F.relu(x)
     if act == "leaky":
         return F.leaky_relu(x, 0.1)
+    if act == "mish":
+        return mish(x)
     raise NotImplementedError(f"Activation '{act}' is not implemented.")
 
 
@@ -139,18 +159,19 @@ class _ConvParams(nn.Module):
 
 
 class ConvNormAct(nn.Module):
-    """conv (or DCNv2) + {bn|none} + {relu|leaky|none}.  ``frozen`` (set by
-    ``freeze``) and ``freeze_norm`` take leaves out of training: their
-    ``requires_grad`` follows ``param_policy``."""
+    """conv (or DCNv2) + {bn|sync_bn|gn|affine_channel|none} +
+    {relu|leaky|mish|none}.  ``frozen`` (set by ``freeze``) and
+    ``freeze_norm`` take leaves out of training: their ``requires_grad``
+    follows ``param_policy``."""
 
     def __init__(self, cin: int, cout: int, ksize: int, *, stride: int = 1,
-                 bias: bool = False, norm: Optional[str] = None,
+                 bias: bool = False, norm: Optional[str] = None, groups: int = 32,
                  act: Optional[str] = None, use_dcn: bool = False,
                  lr_mult: float = 1.0, bias_lr_mult: Optional[float] = None,
                  freeze_norm: bool = False):
         super().__init__()
-        if norm not in (None, "bn", "sync_bn"):
-            raise NotImplementedError(f"norm '{norm}' is not ported yet")
+        if norm not in NORMS:
+            raise ValueError(f"norm {norm!r} is not one of {NORMS}")
         self.cin, self.cout, self.ksize, self.stride = cin, cout, ksize, stride
         self.padding = (ksize - 1) // 2
         self.norm, self.act, self.use_dcn = norm, act, use_dcn
@@ -159,7 +180,9 @@ class ConvNormAct(nn.Module):
         self.bias_lr_mult = lr_mult if bias_lr_mult is None else bias_lr_mult
         self.freeze_norm = freeze_norm
         self.conv = _ConvParams(cin, cout, ksize, bias, use_dcn)
-        self.bn = BatchNorm(cout, sync=norm == "sync_bn") if norm is not None else None
+        self.bn = BatchNorm(cout, sync=norm == "sync_bn") if norm in ("bn", "sync_bn") else None
+        self.gn = GroupNorm(cout, groups) if norm == "gn" else None
+        self.af = AffineChannel(cout) if norm == "affine_channel" else None
         self._packed = None
         self._packed_key = None
         self._coord_terms: Dict[tuple, torch.Tensor] = {}
@@ -178,8 +201,8 @@ class ConvNormAct(nn.Module):
 
     def param_policy(self) -> Dict[str, Any]:
         """Per-leaf policy tree exactly as ``ppyolo_tpu/ops/conv.py:384-418``:
-        lr_mult everywhere, no weight decay for BN params and the conv bias,
-        BN running stats never trained."""
+        lr_mult everywhere, no weight decay for the norms' params and the
+        conv bias, BN running stats never trained."""
         t = not self.frozen
         pol: Dict[str, Any] = {"conv": {}}
         if self.use_dcn:
@@ -190,19 +213,28 @@ class ConvNormAct(nn.Module):
             pol["conv"]["weight"] = ParamPolicy(self.lr_mult, 1.0, t)
             if self.has_bias:
                 pol["conv"]["bias"] = ParamPolicy(self.bias_lr_mult, 0.0, t)
+        tn = t and not self.freeze_norm
         if self.bn is not None:
-            tn = t and not self.freeze_norm
             pol["bn"] = {"weight": ParamPolicy(self.lr_mult, 0.0, tn),
                          "bias": ParamPolicy(self.lr_mult, 0.0, tn),
                          "running_mean": ParamPolicy(0.0, 0.0, False),
                          "running_var": ParamPolicy(0.0, 0.0, False)}
+        for name in ("gn", "af"):
+            if getattr(self, name) is not None:
+                pol[name] = {"weight": ParamPolicy(self.lr_mult, 0.0, tn),
+                             "bias": ParamPolicy(self.lr_mult, 0.0, tn)}
         return pol
+
+    def norm_layer(self) -> Optional[nn.Module]:
+        """The norm module (BatchNorm, GroupNorm or AffineChannel), or None."""
+        return self.bn if self.bn is not None else (self.gn if self.gn is not None
+                                                    else self.af)
 
     @torch.no_grad()
     def init_parameters(self, generator: torch.Generator) -> None:
         """The JAX init's distributions: kaiming-normal conv weight,
         xavier-normal ``dcn_weight``, zero offset conv and biases, identity
-        BN."""
+        norms (ones and zeros; BN's running stats zero and one)."""
         k = self.ksize
         fan_in = self.cin * k * k
         c = self.conv
@@ -216,8 +248,9 @@ class ConvNormAct(nn.Module):
             c.weight.copy_(torch.randn(c.weight.shape, generator=generator) * std)
             if c.bias is not None:
                 c.bias.zero_()
-        if self.bn is not None:
-            self.bn.reset_parameters()
+        norm = self.norm_layer()
+        if norm is not None:
+            norm.reset_parameters()
 
     def _cached_pack(self, w: torch.Tensor, pack) -> torch.Tensor:
         """``pack(w)``, recomputed only when w changes (a new tensor, an
@@ -270,6 +303,12 @@ class ConvNormAct(nn.Module):
                       and not torch.compiler.is_exporting() else None)
             x = deform_conv2d(x, c.dcn_weight, om, stride=self.stride,
                               padding=self.padding, packed_weight=packed)
+        elif c.is_int8 and torch.compiler.is_exporting():
+            # the artifact's node (eval/export.py): scale and packing in the program
+            s_x = c._buffers.get("act_scale")
+            x = torch.ops.ppyolo.quantized_conv2d(
+                x, c.weight, pack_int8_weight(c.weight), c.weight_scale,
+                dynamic_act_scale(x) if s_x is None else s_x, c.bias, self.stride, self.padding)
         elif c.is_int8:
             # int8 serving form (eval/optimize.py::quantize_params_int8)
             x = quantized_conv2d(x, c.weight, c.weight_scale, stride=self.stride,
@@ -278,8 +317,13 @@ class ConvNormAct(nn.Module):
                                  packed=self.packed_int8_weight() if x.is_cuda else None)
         else:
             x = F.conv2d(x, c.weight, c.bias, self.stride, self.padding)
-        if self.bn is not None:
-            x = self.bn(x)
+        return self._norm_act(x)
+
+    def _norm_act(self, x: torch.Tensor) -> torch.Tensor:
+        """The norm, then the activation (``ppyolo_tpu/ops/conv.py::_norm_act``)."""
+        norm = self.norm_layer()
+        if norm is not None:
+            x = norm(x)
         return apply_act(x, self.act)
 
     def forward_parts(self, parts: Sequence[torch.Tensor], *, coord: bool = False) -> torch.Tensor:
@@ -328,10 +372,7 @@ class ConvNormAct(nn.Module):
                              f"{self.cin}")
         if c.bias is not None:
             y = y + c.bias.to(acc).view(1, -1, 1, 1)
-        y = y.to(dt)
-        if self.bn is not None:
-            y = self.bn(y)
-        return apply_act(y, self.act)
+        return self._norm_act(y.to(dt))
 
     def _part_conv(self, p: torch.Tensor, w: torch.Tensor, acc: torch.dtype) -> torch.Tensor:
         """One part's conv with the sum in ``acc`` (see ``forward_parts``)."""

@@ -63,7 +63,11 @@ def dynamic_act_scale(x: torch.Tensor) -> torch.Tensor:
         x = x.permute(0, 2, 3, 1)   # the contiguous NHWC view: aminmax copies no layout
     mn, mx = torch.aminmax(x)
     amax = torch.maximum(mx, -mn).float().clamp_min(1e-6)
-    return torch.div(amax, device_constant(float(QMAX), torch.float32, x.device))
+    # a program torch.export traces makes its divisor on the device (a kept
+    # constant would be a host tensor copied in at every call)
+    qmax = (torch.full_like(amax, float(QMAX)) if torch.compiler.is_exporting()
+            else device_constant(float(QMAX), torch.float32, x.device))
+    return torch.div(amax, qmax)
 
 
 def quantize_act(x: torch.Tensor, s_x: torch.Tensor) -> torch.Tensor:
@@ -329,6 +333,12 @@ def quantized_conv2d(x: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor, *
     k = _check(x, wq, stride, padding, "quantized_conv2d")
     if torch.is_grad_enabled() and x.requires_grad:
         raise RuntimeError("quantized_conv2d has no backward: serve under torch.no_grad()")
+    if _build.recording():
+        from ..utils.mfu import conv_int8_flops
+
+        n, c, h, w = x.shape
+        ho, wo = (h + 2 * padding - k) // stride + 1, (w + 2 * padding - k) // stride + 1
+        _build.note_call("conv_int8", conv_int8_flops(n, ho, wo, wq.shape[0], c, k), x.is_cuda)
     if x.device.type == "cpu":
         return quantized_conv2d_plain(x, wq, w_scale, stride=stride, padding=padding,
                                       bias=bias, act_scale=act_scale)
@@ -380,3 +390,26 @@ def quantized_conv2d(x: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor, *
     if err != 0:
         raise RuntimeError(f"quantized_conv2d kernel launch failed: cudaError {err}")
     return y
+
+
+@torch.library.custom_op("ppyolo::quantized_conv2d", mutates_args=())
+def quantized_conv2d_op(x: torch.Tensor, wq: torch.Tensor, packed: torch.Tensor,
+                        w_scale: torch.Tensor, act_scale: torch.Tensor,
+                        bias: Optional[torch.Tensor], stride: int, padding: int) -> torch.Tensor:
+    """K5 as an operator of the ``ppyolo`` library, the form an int8
+    ``torch.export`` artifact holds (``eval/export.py``): ``quantized_conv2d``
+    with the activation scale as an input (the calibrated buffer, or
+    ``dynamic_act_scale(x)`` computed in the program) and the weight both
+    as it is (the plain version's, on a CPU tensor) and packed (K5's, on a
+    CUDA tensor)."""
+    return quantized_conv2d(x, wq, w_scale, stride=stride, padding=padding, bias=bias,
+                            act_scale=act_scale, packed=packed if x.is_cuda else None)
+
+
+@quantized_conv2d_op.register_fake
+def _quantized_conv2d_fake(x, wq, packed, w_scale, act_scale, bias, stride, padding):
+    n, _, h, w = x.shape
+    k = wq.shape[2]
+    return torch.empty((n, wq.shape[0], (h + 2 * padding - k) // stride + 1,
+                        (w + 2 * padding - k) // stride + 1), dtype=x.dtype, device=x.device,
+                       memory_format=torch.channels_last)

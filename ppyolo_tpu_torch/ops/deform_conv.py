@@ -44,6 +44,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from . import _build
 from .module import make_contextvar_override
 
 DCN_FORM, dcn_form = make_contextvar_override("DCN_FORM", ("auto", "plain", "kernel"), "auto")
@@ -272,6 +273,27 @@ def deform_conv2d(x: torch.Tensor, weight: torch.Tensor, om: torch.Tensor, *,
     kernel cannot launch.  ``dcn_form`` overrides the choice (module
     docstring)."""
     form = DCN_FORM.get()
+    out = _deform_conv2d(x, weight, om, form, stride, padding, bias, packed_weight)
+    if _build.recording():
+        _note_calls(x, weight, out, stride, padding, launched=x.is_cuda and form != "plain")
+    return out
+
+
+def _note_calls(x, weight, out, stride, padding, launched: bool) -> None:
+    """Report K1's call and, where a backward will run, K3's as it runs (a
+    hook on the output; on the CPU autograd's backward of the plain version
+    takes K3's place)."""
+    from ..utils.mfu import dcn_bwd_flops, dcn_fwd_flops
+
+    n, c, h, w = x.shape
+    co, _, kh, kw = weight.shape
+    shape = (n, out_size(h, kh, stride, padding), out_size(w, kw, stride, padding), kh * kw, c)
+    _build.note_call("dcn_fwd", dcn_fwd_flops(*shape, co), launched)
+    if out.requires_grad:
+        out.register_hook(lambda g: _build.note_call("dcn_bwd", dcn_bwd_flops(*shape), launched))
+
+
+def _deform_conv2d(x, weight, om, form, stride, padding, bias, packed_weight):
     if form == "kernel":
         from .deform_conv_cuda import pack_dcn_weight
 

@@ -187,6 +187,10 @@ def nms_keep(valid: torch.Tensor, boxes: torch.Tensor, labels: torch.Tensor,
     if tuple(boxes.shape) != (bsz, k, 4) or tuple(labels.shape) != (bsz, k):
         raise ValueError(f"nms_keep: boxes {tuple(boxes.shape)} and labels "
                          f"{tuple(labels.shape)} are not ({bsz}, {k}, 4) and ({bsz}, {k})")
+    if _build.recording():
+        from ..utils.mfu import nms_keep_flops
+
+        _build.note_call("nms_keep", nms_keep_flops(bsz, k), valid.is_cuda)
     if valid.device.type == "cpu":
         return nms_keep_boxes_plain(valid, boxes, labels, nms_threshold)
     if valid.device.type != "cuda" or {boxes.device, labels.device} != {valid.device}:

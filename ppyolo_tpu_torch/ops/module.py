@@ -1,5 +1,5 @@
 """Tree helpers, the device rule, the optimizer policy, mode overrides and
-BatchNorm.
+the norms: BatchNorm, GroupNorm and AffineChannel.
 
 The port's ``state_dict`` keys are the JAX package's param-tree dotted
 paths exactly (``backbone.stage2_0.conv1.conv.weight``,
@@ -94,8 +94,12 @@ _CONSTANTS: Dict[tuple, torch.Tensor] = {}
 def device_constant(values, dtype: torch.dtype, device) -> torch.Tensor:
     """``torch.tensor(values, dtype=dtype, device=device)``, made once per
     (values, dtype, device) and kept, so the op that reads it copies
-    nothing from the host and a CUDA graph can capture it."""
+    nothing from the host and a CUDA graph can capture it.  While
+    torch.export traces, a constant of the program (never kept: it would
+    be the trace's fake tensor)."""
     arr = np.asarray(values)
+    if torch.compiler.is_exporting():
+        return torch.tensor(arr, dtype=dtype, device=device)
     key = (arr.shape, str(arr.dtype), arr.tobytes(), dtype, torch.device(device))
     t = _CONSTANTS.get(key)
     if t is None:
@@ -277,3 +281,65 @@ class BatchNorm(nn.Module):
             for buf, stat in ((self.running_mean, m), (self.running_var, unbiased)):
                 buf.copy_((1 - BN_MOMENTUM) * buf + BN_MOMENTUM * stat.to(buf.dtype))
         return y.to(x.dtype)
+
+
+class GroupNorm(nn.Module):
+    """GroupNorm over NCHW (``ppyolo_tpu/ops/conv.py::group_norm``): the
+    channels split into ``groups`` groups of ``C / groups``; each image's
+    group is normalized by its mean and biased variance over (its channels,
+    H, W), ``(g - m) * rsqrt(v + eps)``, then ``* weight + bias`` per
+    channel and a cast back to x's dtype.  The statistics are fp32 for bf16
+    and fp32 input (JAX's ``astype(float32)``) and fp64 for fp64 input.
+
+    The group view of a ``channels_last`` tensor splits its unit-stride
+    channel dimension, so it is a view (no copy).  The normalization and
+    the affine fold into one ``x * k + b`` pass with ``k = rsqrt(v + eps) *
+    weight`` and ``b = bias - m * k`` per (image, channel), formed in the
+    statistics' dtype: the passes over the activation are the cast to the
+    statistics' dtype (none for fp32 and fp64), ``var_mean`` and the fused
+    affine.  No running statistics: eval and training are the same
+    function, and nothing is synced across ranks."""
+
+    def __init__(self, channels: int, groups: int = 32):
+        super().__init__()
+        if channels % groups:
+            raise ValueError(f"GroupNorm: {channels} channels do not split into {groups} groups")
+        self.groups = groups
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def reset_parameters(self) -> None:
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n, c, h, w = x.shape
+        g = self.groups
+        acc = torch.promote_types(x.dtype, torch.float32)
+        xa = x.to(acc)
+        v, m = torch.var_mean(xa.view(n, g, c // g, h, w), dim=(2, 3, 4), correction=0)
+        inv = torch.rsqrt(v + BN_EPS).repeat_interleave(c // g, dim=1)          # [n, c]
+        k = inv * self.weight.to(acc)
+        b = self.bias.to(acc) - m.repeat_interleave(c // g, dim=1) * k
+        return torch.addcmul(b.view(n, c, 1, 1), xa, k.view(n, c, 1, 1)).to(x.dtype)
+
+
+class AffineChannel(nn.Module):
+    """``x * weight + bias`` per channel (``ppyolo_tpu/ops/conv.py``'s
+    ``affine_channel``, reference custom_layers.py:46-62), in the dtype the
+    two operands promote to, as in JAX."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def reset_parameters(self) -> None:
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shape = (1, -1, 1, 1)
+        return x * self.weight.view(shape) + self.bias.view(shape)

@@ -191,6 +191,11 @@ def apply_stem(mods: Sequence, x: torch.Tensor) -> torch.Tensor:
     """conv1_1..conv1_3 (+BN +relu) + max-pool: fused where eligible (and
     ``stem_form`` is not ``plain``)."""
     form = STEM_FORM.get()
+    if form != "plain" and _build.recording() and stem_eligible(mods, x):
+        from ..utils.mfu import fused_stem_flops
+
+        n, _, h, w = x.shape
+        _build.note_call("fused_stem", fused_stem_flops(n, h, w), x.is_cuda)
     if form == "kernel" and stem_eligible(mods, x):
         folded = [t for m in mods for t in fold_eval_bn(m)]
         return torch.ops.ppyolo.fused_stem(x, *folded, *pack_stem_params(*folded))

@@ -109,6 +109,11 @@ def conv_s2(x: torch.Tensor, w: torch.Tensor, packed: torch.Tensor = None) -> to
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         raise RuntimeError("conv_s2 has no backward (nor has the Pallas kernel); "
                            "call it under torch.no_grad() or on detached tensors")
+    if _build.recording():
+        from ..utils.mfu import conv_s2_flops
+
+        _build.note_call("conv_s2", conv_s2_flops(x.shape[0], s, x.shape[1], w.shape[0]),
+                         x.is_cuda)
     if x.device.type == "cpu":
         return conv_s2_phase(x, w)
     if x.device.type != "cuda":

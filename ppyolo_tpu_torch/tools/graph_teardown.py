@@ -66,13 +66,12 @@ def main(argv=None) -> int:
     p.add_argument("--sessions", type=int, default=3)
     args = p.parse_args(argv)
 
-    from torch.profiler import ProfilerActivity, profile
-
     from ppyolo_tpu_torch.models import PPYOLO
     from ppyolo_tpu_torch.ops.deform_conv_cuda import dcn_fwd
     from ppyolo_tpu_torch.train.graphs import GraphedStep
     from ppyolo_tpu_torch.train.train_step import (init_train_state, make_multi_train_step,
                                                    make_train_step)
+    from ppyolo_tpu_torch.utils.profiling import device_trace
 
     if not torch.cuda.is_available():
         print("graph_teardown needs a CUDA card", file=sys.stderr)
@@ -82,7 +81,7 @@ def main(argv=None) -> int:
 
     def profiled(fn) -> int:
         before = dcn_fwd.launches
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with device_trace() as prof:
             fn()
             torch.cuda.synchronize()
         traced = sum(e.count for e in prof.key_averages() if "dcn_fwd_kernel" in e.key)

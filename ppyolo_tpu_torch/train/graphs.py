@@ -33,6 +33,10 @@ The launch wrappers count a capture's calls apart (``ops/_build.py``): each
 graph keeps those counts and adds them to the wrappers' ``launches`` at
 every replay, so ``launches`` counts the kernels that ran.
 
+``flops`` holds the FLOPs of one call of each shape (``utils/mfu.py``),
+counted on a run that happens anyway: the warm-up before a capture, or on
+the CPU the first call of the shape.
+
 Under a process group the collectives of ``fn`` (the gradient bucket,
 sync-BN's statistics) are captured with it, so a replay runs them too.
 That needs NCCL: its communicator comes into being in the warm-up run,
@@ -86,6 +90,7 @@ from torch import nn
 from ..ops import _build
 from ..ops.module import refresh_caches
 from ..parallel import dist
+from ..utils.mfu import counting
 
 WARMUP_ITERS = 1
 Inputs = Dict[str, Any]   # name -> tensor, or a tuple of tensors
@@ -209,6 +214,7 @@ class Graphs:
         # shape key -> (graph, static inputs, outputs, {wrapper: calls it recorded})
         self.graphs: Dict[tuple, Tuple[Any, Inputs, Dict[str, torch.Tensor], dict]] = {}
         self.captures: Dict[tuple, float] = {}
+        self.flops: Dict[tuple, float] = {}   # shape key -> FLOPs of one call
         self.captures_graphs = capture and self.device.type == "cuda"
         if self.captures_graphs and dist.backend() == "gloo":
             raise RuntimeError("a gloo process group cannot be captured in a CUDA graph: "
@@ -244,14 +250,15 @@ class Graphs:
         t0 = time.perf_counter()
         snap = self._snapshot()
         if not self.captures_graphs:
-            self.fn(inputs)
+            self._counted(key, inputs)
             self._restore(snap)
         else:
             static = _empty_like_on(inputs, self.device)
             _copy_into(static, inputs)
             self.stream.wait_stream(torch.cuda.current_stream(self.device))
             with torch.cuda.stream(self.stream):
-                for _ in range(WARMUP_ITERS):
+                self._counted(key, static)
+                for _ in range(WARMUP_ITERS - 1):
                     self.fn(static)
             torch.cuda.current_stream(self.device).wait_stream(self.stream)
             self._restore(snap)
@@ -268,10 +275,17 @@ class Graphs:
         self.captures[key] = time.perf_counter() - t0
         return self.captures[key]
 
+    def _counted(self, key: tuple, inputs: Inputs) -> Dict[str, torch.Tensor]:
+        """``fn(inputs)``, its FLOPs counted into ``flops[key]``."""
+        with counting() as c:
+            out = self.fn(inputs)
+        self.flops[key] = c.total
+        return out
+
     def __call__(self, inputs: Inputs) -> Dict[str, torch.Tensor]:
-        if not self.captures_graphs:
-            return self.fn(inputs)
         key = shape_key(inputs)
+        if not self.captures_graphs:
+            return self.fn(inputs) if key in self.flops else self._counted(key, inputs)
         if key not in self.graphs:
             self.prepare(inputs)
         graph, static, out, recorded = self.graphs[key]
@@ -292,6 +306,7 @@ class Graphs:
             self.stream.synchronize()
         self.graphs.clear()
         self.captures.clear()
+        self.flops.clear()
 
     def _refresh_caches(self) -> None:
         if self.model is None:
@@ -328,6 +343,11 @@ class GraphedStep:
         """Capture the graph of ``unit``'s shape (``warmup_shapes``); the
         state, the generator and the step stay as they were."""
         return self.graphs.prepare(unit)
+
+    def unit_flops(self, unit: Inputs) -> Optional[float]:
+        """FLOPs of one unit of ``unit``'s shape, once one ran (or was
+        prepared)."""
+        return self.graphs.flops.get(shape_key(unit))
 
     def __call__(self, state, unit: Inputs, generator: Optional[torch.Generator] = None):
         if state is not self.state or (generator is not None and generator is not self.generator):

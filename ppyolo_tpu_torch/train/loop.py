@@ -8,7 +8,9 @@ stacked on a leading axis for a multi-step function
 one replay of a CUDA graph (``train/graphs.py::GraphedStep``).  When a unit
 ends on a ``train_cfg['log_iter']`` boundary (JAX's ``will_log`` rule,
 ``train.py:269-270``) it reads the unit's last losses (a sync with the
-card) and hands them to ``on_log`` with the window's seconds per step.
+card), logs the JAX entry's line (``iter, losses, imgs/s, TFLOP/s (mfu),
+eta``; the unit's FLOPs from its first run, ``utils/mfu.py``) and hands
+the record to ``on_log`` with the window's seconds per step.
 ``after_step`` runs after every unit (the entry's checkpoints and evals);
 its time is kept out of the next window.  Under a process group only rank
 0 reads and logs the losses, which the step averaged over the ranks
@@ -31,6 +33,8 @@ from ..models import PPYOLO
 from ..ops.ema import ema_apply
 from ..ops.module import resolve_device
 from ..parallel import dist
+from ..utils.logger import TrainMeter
+from ..utils.mfu import mfu
 from .graphs import GraphedStep
 from .train_step import TrainState, init_train_state, make_multi_train_step, make_train_step
 
@@ -70,10 +74,15 @@ def step_loop(state: TrainState, step_fn, units: Iterable[Tuple[Dict, Dict]],
     (losses stacked to ``[n_steps]`` when ``n_steps > 1``).  ``on_log(step,
     losses, info)`` gets each logged record: the unit's last losses;
     ``info`` holds the batch's ``size`` [H, W], ``step_s`` (the mean wall
-    time of a step since the last log) and ``imgs_per_sec``."""
+    time of a step since the last log), ``imgs_per_sec``, ``tflops`` (all
+    ranks' TFLOP/s) and ``mfu`` (None where the FLOPs or the card's peak
+    are unknown: ``utils/mfu.py``) and ``eta_h``, the hours left at the mean
+    step time of the last 20 logs."""
     t0, n_done = time.time(), 0
     units = iter(units)
     is_main = dist.rank() == 0
+    meter = TrainMeter()
+    unit_flops = getattr(step_fn, "unit_flops", lambda unit: None)
     while state.step < max_iters:
         item = next(units, None)
         if item is None:
@@ -87,10 +96,25 @@ def step_loop(state: TrainState, step_fn, units: Iterable[Tuple[Dict, Dict]],
                 losses = {k: v[-1] for k, v in losses.items()}
             vals = {k: float(v) for k, v in losses.items()}   # syncs with the card
             step_s = (time.time() - t0) / n_done
+            meter.update(step_s)
             n, h, w = unit["image"].shape[-4:-1]
-            info = {"size": [int(h), int(w)], "step_s": step_s, "imgs_per_sec": n / step_s}
+            flops = unit_flops(unit)
+            flops = flops * dist.world() if flops else None
+            unit_s = step_s * n_steps
+            u = mfu(flops, unit_s, n_chips=dist.world(), device=state.step_t.device)
+            info = {"size": [int(h), int(w)], "step_s": step_s, "imgs_per_sec": n / step_s,
+                    # 6 places, not JAX's 3: a CPU step's TFLOP/s is below 1e-3
+                    "tflops": round(flops / unit_s / 1e12, 6) if flops else None,
+                    "mfu": round(u, 4) if u is not None else None,
+                    "eta_h": meter.eta_hours(max_iters - state.step)}
             msg = ", ".join(f"{k}={v:.3f}" for k, v in vals.items())
-            logger.info("iter %d, %s, %.1f imgs/s", state.step, msg, info["imgs_per_sec"])
+            perf = ""
+            if flops:
+                perf = f", {flops / unit_s / 1e12:.2f} TFLOP/s"
+                if u is not None:
+                    perf += f" (mfu {u:.1%})"
+            logger.info("iter %d, %s, %.1f imgs/s%s, eta %.1fh", state.step, msg,
+                        info["imgs_per_sec"], perf, info["eta_h"])
             if on_log is not None:
                 on_log(state.step, vals, info)
             t0, n_done = time.time(), 0
@@ -104,7 +128,7 @@ def step_loop(state: TrainState, step_fn, units: Iterable[Tuple[Dict, Dict]],
 def run_training(cfg, batches: Iterable[Dict], *, device=None,
                  max_iters: Optional[int] = None,
                  model: Optional[PPYOLO] = None, seed: int = 0,
-                 log_fn: Optional[Callable[[int, Dict[str, float]], None]] = None,
+                 log_fn: Optional[Callable[[int, Dict[str, float], Dict], None]] = None,
                  after_step: Optional[Callable[[TrainState], None]] = None,
                  ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """Train ``model`` (default: ``cfg``'s model, random init from ``seed``)
@@ -112,8 +136,8 @@ def run_training(cfg, batches: Iterable[Dict], *, device=None,
     ['max_iters']``) or until the batches run out.  ``device`` defaults to
     CUDA and raises without a card; precision is ``train_cfg['precision']``
     (fp32 or bf16 mixed), and ``train_cfg['scan_steps']`` batches make a
-    unit of work.  ``log_fn(step, losses)`` receives each logged
-    record; ``after_step(state)`` runs after every unit.  Returns the state
+    unit of work.  ``log_fn(step, losses, info)`` receives each logged
+    record (``step_loop``'s ``on_log``); ``after_step(state)`` runs after every unit.  Returns the state
     and the EMA-applied state dict."""
     dev = resolve_device(device)
     tc = cfg.train_cfg
@@ -130,7 +154,7 @@ def run_training(cfg, batches: Iterable[Dict], *, device=None,
         state, unit_step, DevicePrefetcher(stack_units(batches, n_steps), dev), generator,
         max_iters=int(tc["max_iters"] if max_iters is None else max_iters),
         log_every=int(tc.get("log_iter", 20)), n_steps=n_steps,
-        on_log=None if log_fn is None else (lambda step, vals, _: log_fn(step, vals)),
+        on_log=log_fn,
         after_step=after_step)
     sd = model.state_dict()
     return state, (ema_apply(sd, state.ema) if state.ema is not None else dict(sd))

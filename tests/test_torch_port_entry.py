@@ -234,7 +234,8 @@ def test_entry_trains_and_writes_the_jax_files(trained):
     assert [r["iter"] for r in steps] == [1, 2, 3, 4]
     for r in steps:
         assert set(r) == METRIC_KEYS and np.isfinite(r["total_loss"])
-        assert r["size"][0] in (64, 96) and r["tflops"] is None and r["mfu"] is None
+        # FLOPs are counted on the CPU too (as JAX's cost analysis); the peak is not known
+        assert r["size"][0] in (64, 96) and r["tflops"] > 0 and r["mfu"] is None
     ev = [r for r in rows if "box_ap" in r]
     assert len(ev) == 1 and ev[0]["iter"] == 4 and {"iter", "time", "box_ap"} <= set(ev[0])
     assert len(ev[0]["stats"]) == 12 and all(-1 <= s <= 1 for s in ev[0]["stats"])

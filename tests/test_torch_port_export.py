@@ -8,7 +8,9 @@ kernel forms, and for mini-2x (DCN in stage 5) at 96 px in fp32 and bf16,
 where the kernel form holds ``ppyolo::dcn_fwd`` and, in bf16,
 ``ppyolo::fused_stem`` nodes (their CPU implementations: the plain
 versions) and the plain form none.  Multiclass NMS exports through its
-``ppyolo::nms_keep`` node.  int8 raises.
+``ppyolo::nms_keep`` node.  An int8 Detector exports as the JAX package's
+does, each int8 conv a ``ppyolo::quantized_conv2d`` node, with dynamic and
+with calibrated scales.
 """
 import json
 import os
@@ -106,9 +108,66 @@ def test_multiclass_nms_exports_through_its_keep_operator():
 
 
 def test_int8_export_raises():
+    """int8 export used to raise (the JAX tool offers fp32 and bf16 only);
+    the JAX ``export_detector`` exports an int8 Detector
+    (``test_jax_exports_int8``), so the port's does too: at b1 the round
+    trip is bitwise ``predict_batch``, and nothing raises."""
     det = _detector(_r18_cfg(), 64, "int8")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        export_detector(det, batch=1)
+    images, sizes = _batch(64)
+    program = load_program(export_detector(det, batch=1))
+    assert _ppyolo_ops(program) == ["quantized_conv2d"]
+    with stem_form("plain"):    # the plain form's unfused stem
+        direct = det.predict_batch(images[:1], sizes[:1])
+    assert np.array_equal(serving_fn(program)(images[:1], sizes[:1]), direct)
+
+
+def _quantized_nodes(program):
+    return sum(str(n.target) == "ppyolo.quantized_conv2d.default" for n in program.graph.nodes)
+
+
+def test_jax_exports_int8():
+    """The JAX package's ``export_detector`` exports and round-trips an int8
+    Detector (r18vd, 64 px, dynamic scales: bitwise its ``predict_batch``),
+    which is why the port exports int8 too."""
+    import jax
+
+    from ppyolo_tpu.eval.detector import Detector as JaxDetector
+    from ppyolo_tpu.eval.export import export_detector as jax_export
+    from ppyolo_tpu.eval.export import load_serving as jax_load
+    from ppyolo_tpu.models import PPYOLO as JaxPPYOLO
+
+    cfg = _r18_cfg()
+    jm = JaxPPYOLO.from_config(cfg)
+    det = JaxDetector(jm, jm.init(jax.random.PRNGKey(0)), cfg, target_size=64,
+                      precision="int8")
+    images, sizes = _batch(64)
+    direct = np.asarray(det.predict_batch(images, sizes))
+    assert (direct[..., 0] >= 0).any()
+    assert np.array_equal(np.asarray(jax_load(jax_export(det, batch=2))(images, sizes)), direct)
+
+
+@pytest.mark.parametrize("calibrated", [False, True])
+@pytest.mark.parametrize("model", ["r18vd", "mini2x"])
+def test_int8_export_roundtrip_is_bitwise(model, calibrated):
+    """The int8 artifact equals ``Detector(precision="int8").predict_batch``
+    bitwise, with dynamic scales (computed in the program) and calibrated
+    ones; the kernel form holds the convs as ``ppyolo::quantized_conv2d``
+    nodes (K5 on a card), the DCN as ``ppyolo::dcn_fwd`` and the stem as
+    ``ppyolo::fused_stem``."""
+    cfg, size = (_r18_cfg(), 128) if model == "r18vd" else (mini2x_cfg(), 64)
+    det = _detector(cfg, size, "int8")
+    images, sizes = _batch(size, 3)
+    if calibrated:
+        assert det.calibrate(images) > 0
+    program = load_program(export_detector(det, batch=2, dcn="kernel", stem="kernel"))
+    quantized = sum(m.conv.is_int8 for m in det.model.modules() if hasattr(m, "conv")
+                    and hasattr(m.conv, "is_int8"))
+    assert _quantized_nodes(program) == quantized > 0
+    want = ["dcn_fwd"] if model == "mini2x" else []
+    assert _ppyolo_ops(program) == sorted(want + ["fused_stem", "quantized_conv2d"])
+    direct = det.predict_batch(images, sizes)
+    assert (direct[..., 0] >= 0).any()
+    assert np.array_equal(serving_fn(program)(images, sizes), direct)
 
 
 def _run(module, *args):

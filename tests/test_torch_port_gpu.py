@@ -561,11 +561,10 @@ def test_replays_outlive_destroyed_graphs_that_shared_their_generator():
     session's trace holds the K1 and K3 launches the counters count."""
     import gc
 
-    from torch.profiler import ProfilerActivity, profile
-
     from ppyolo_tpu_torch.ops.deform_conv_cuda import dcn_bwd, dcn_fwd
     from ppyolo_tpu_torch.train.graphs import GraphedStep
     from ppyolo_tpu_torch.train.train_step import make_multi_train_step
+    from ppyolo_tpu_torch.utils.profiling import device_trace
 
     _cuda_or_skip()
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
@@ -587,7 +586,7 @@ def test_replays_outlive_destroyed_graphs_that_shared_their_generator():
     def run(key):
         _, want = (step_e if key[0] == 1 else multi_e)(eager, inputs[key], gen_e)
         counts = (dcn_fwd.launches, dcn_bwd.launches)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with device_trace() as prof:
             _, got = units[key](graphed, inputs[key])
             torch.cuda.synchronize()
         traced = [sum(e.count for e in prof.key_averages() if name in e.key)
@@ -1219,3 +1218,119 @@ def test_int8_detector_graphed_is_bitwise_eager(nms_type):
         assert plain_calls == []
     finally:
         conv_int8.quantized_conv2d_plain = real_plain
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("norm,act", [("gn", "relu"), ("gn", "mish"), ("affine_channel", "leaky")])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gn_conv_norm_act_on_the_card_matches_the_cpu(norm, act, dtype):
+    """A GN (or affine_channel) ConvNormAct, 3x3 C 64, on the card against
+    the same layer on the CPU: within 2e-2 relative L2 in bf16 (cuDNN's
+    bf16 conv against the CPU's) and 1e-5 in fp32 (TF32 off); the DCN form
+    of the layer too, through K1."""
+    from ppyolo_tpu_torch.ops.conv import ConvNormAct
+
+    dev = _cuda_or_skip()
+    for dcn in (False, True):
+        m = ConvNormAct(64, 64, 3, norm=norm, act=act, use_dcn=dcn)
+        m.init_parameters(torch.Generator().manual_seed(0))
+        r = np.random.RandomState(1)
+        with torch.no_grad():
+            for name, p in m.named_parameters():
+                if "conv_offset" in name:
+                    p.copy_(torch.from_numpy((r.randn(*p.shape) * 0.02).astype(np.float32)))
+                elif name.startswith(("gn.", "af.")):
+                    p.add_(torch.from_numpy((r.randn(*p.shape) * 0.3).astype(np.float32)))
+        x = _nchw(r.randn(2, 19, 19, 64).astype(np.float32), dtype)
+        x = x.contiguous(memory_format=torch.channels_last)
+        with torch.no_grad():
+            want = m.to(dtype)(x).double()
+            got = m.to(dev)(x.to(dev)).double().cpu()
+        torch.cuda.synchronize()
+        # K1 rounds an fp32 layer's operands to bf16, as in bf16
+        tol = 1e-5 if dtype == torch.float32 and not dcn else 2e-2
+        assert float((got - want).norm() / want.norm()) <= tol, (norm, act, dcn)
+
+
+@pytest.mark.gpu
+def test_int8_artifact_is_bitwise_predict_batch():
+    """The int8 mini-2x artifact at b2 in the kernel form on the card:
+    dynamic and calibrated scales, each bitwise ``predict_batch``, K5 once
+    an int8 conv a call (``ppyolo::quantized_conv2d``), K1 once a DCN, K2
+    once."""
+    from ppyolo_tpu_torch.eval.detector import Detector
+    from ppyolo_tpu_torch.eval.export import export_detector, load_serving
+    from ppyolo_tpu_torch.models import PPYOLO
+    from ppyolo_tpu_torch.ops import conv_int8
+    from ppyolo_tpu_torch.ops.conv import ConvNormAct
+    from ppyolo_tpu_torch.ops.deform_conv_cuda import dcn_fwd
+
+    _cuda_or_skip()
+    cfg = _mini2x_cfg()
+    model = PPYOLO.from_config(cfg).init_parameters(torch.Generator().manual_seed(0))
+    det = Detector(model, model.state_dict(), cfg, target_size=96, precision="int8")
+    n8 = sum(isinstance(m, ConvNormAct) and m.conv.is_int8 for m in det.model.modules())
+    n_dcn = sum(isinstance(m, ConvNormAct) and m.use_dcn for m in det.model.modules())
+    r = np.random.RandomState(4)
+    images = r.randint(0, 256, (2, 96, 96, 3)).astype(np.uint8)
+    sizes = np.array([[480, 640], [96, 96]], np.float32)
+    for calibrated in (False, True):
+        if calibrated:
+            det.calibrate(images)
+        want = det.predict_batch(images, sizes)
+        serve = load_serving(export_detector(det, batch=2, dcn="kernel", stem="kernel"))
+        serve(images, sizes)
+        before = (conv_int8.quantized_conv2d.launches, dcn_fwd.launches, fused_stem.launches)
+        got = serve(images, sizes)
+        torch.cuda.synchronize()
+        after = (conv_int8.quantized_conv2d.launches, dcn_fwd.launches, fused_stem.launches)
+        assert tuple(a - b for a, b in zip(after, before)) == (n8, n_dcn, 1)
+        assert (want[..., 0] >= 0).any()
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.gpu
+def test_kernel_flops_reports_the_launches_of_a_card_unit():
+    """``utils/mfu.kernel_flops`` of a mini-2x bf16 predict and of a train
+    step on the card: every kernel place marked launched, K1 and K2 in the
+    predict, K1 and K3 in the step; and the unit's FLOPs counted by
+    ``Graphs`` on the card equal the CPU's count of the same unit."""
+    from ppyolo_tpu_torch.models import PPYOLO
+    from ppyolo_tpu_torch.ops.conv import ConvNormAct
+    from ppyolo_tpu_torch.train.graphs import GraphedStep
+    from ppyolo_tpu_torch.train.train_step import init_train_state, make_train_step
+    from ppyolo_tpu_torch.utils.mfu import kernel_flops
+
+    dev = _cuda_or_skip()
+    cfg = _mini2x_cfg()
+    cfg.head = dict(cfg.head, drop_block=False)
+    model = PPYOLO.from_config(cfg).init_parameters(torch.Generator().manual_seed(0))
+    n_dcn = sum(isinstance(m, ConvNormAct) and m.use_dcn for m in model.modules())
+    x = torch.randn(2, 3, 96, 96).to(dev, torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    serving = PPYOLO.from_config(cfg).to(dev, torch.bfloat16).eval()
+    with torch.no_grad():
+        calls = kernel_flops(serving.outputs, x)
+    assert sorted(n for n, _, _ in calls) == sorted(["dcn_fwd"] * n_dcn + ["fused_stem"])
+    assert all(launched and f > 0 for _, f, launched in calls)
+
+    r = np.random.RandomState(0)
+    gt = np.zeros((2, 50, 4), np.float32)
+    gt[:, :3, :2], gt[:, :3, 2:] = r.uniform(0.2, 0.8, (2, 3, 2)), r.uniform(0.1, 0.4, (2, 3, 2))
+    score = np.zeros((2, 50), np.float32)
+    score[:, :3] = 1.0
+    batch = {"image": r.randint(0, 256, (2, 96, 96, 3)).astype(np.uint8), "gt_bbox": gt,
+             "gt_class": r.randint(0, 2, (2, 50)).astype(np.int32), "gt_score": score}
+    flops = {}
+    for d in ("cpu", dev):
+        m = PPYOLO.from_config(cfg).init_parameters(torch.Generator().manual_seed(0)).to(d)
+        state = init_train_state(m, cfg)
+        step = GraphedStep(make_train_step(m, cfg), state, None)
+        unit = {k: torch.from_numpy(v).to(d) for k, v in batch.items()}
+        if d == dev:
+            calls = kernel_flops(make_train_step(m, cfg), state, unit)
+            assert sorted(n for n, _, _ in calls) == sorted(["dcn_fwd", "dcn_bwd"] * n_dcn)
+            assert all(launched for _, _, launched in calls)
+        step.prepare(unit)
+        flops[str(d)] = step.unit_flops(unit)
+    assert flops["cpu"] > 0 and flops["cuda"] == pytest.approx(flops["cpu"], rel=1e-6)
