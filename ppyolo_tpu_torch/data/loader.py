@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from .. import native
+from ..utils.profiling import NO_SPAN, span
 from . import transforms as T
 from .coco import get_samples
 from .targets import gt2yolo_targets
@@ -322,13 +323,17 @@ class DevicePrefetcher:
         return self
 
     def __next__(self):
-        host = next(self._it)
-        dev = host_to_device(host, self._device, self._stream)
-        if self._stream is not None:
-            event = torch.cuda.Event()
-            event.record(self._stream)
-            current = torch.cuda.current_stream(self._device)
-            current.wait_event(event)
-            for t in _tensors(dev):
-                t.record_stream(current)
+        with span("feed.host"):
+            host = next(self._it)
+        with span("feed.upload") as sp:
+            dev = host_to_device(host, self._device, self._stream)
+            if self._stream is not None:
+                event = torch.cuda.Event()
+                event.record(self._stream)
+                current = torch.cuda.current_stream(self._device)
+                current.wait_event(event)
+                for t in _tensors(dev):
+                    t.record_stream(current)
+            if sp is not NO_SPAN:
+                sp.attrs["bytes"] = sum(t.nbytes for t in _tensors(dev))
         return dev, host

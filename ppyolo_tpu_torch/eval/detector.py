@@ -43,6 +43,7 @@ from ..ops.stem import STEM_FORM
 from ..ops.module import resolve_device
 from ..parallel import dist
 from ..train.graphs import GraphPool, Graphs
+from ..utils.profiling import NO_SPAN, span
 from .optimize import COMPUTE_DTYPES, calibrate_act_scales, optimize_for_inference
 
 
@@ -118,10 +119,11 @@ class Detector:
         """BGR->RGB + uint8 cv2 resize on the host (reference decode_np.py:125-140)."""
         import cv2
 
-        im = cv2.cvtColor(img_bgr, cv2.COLOR_BGR2RGB)
-        h, w = im.shape[:2]
-        ts = self.target_size
-        im = cv2.resize(im, (ts, ts), interpolation=self.interp)
+        with span("serve.resize"):
+            im = cv2.cvtColor(img_bgr, cv2.COLOR_BGR2RGB)
+            h, w = im.shape[:2]
+            ts = self.target_size
+            im = cv2.resize(im, (ts, ts), interpolation=self.interp)
         if self.to_bgr:
             im = im[..., ::-1]
         return im[None], np.array([[h, w]], np.float32)
@@ -146,22 +148,29 @@ class Detector:
 
     @torch.no_grad()
     def _run(self, pimages: np.ndarray, im_sizes: np.ndarray, group: int) -> np.ndarray:
-        images = torch.from_numpy(np.ascontiguousarray(pimages))
-        sizes = torch.from_numpy(np.ascontiguousarray(im_sizes, np.float32))
-        if not self._capture:
-            return self._predict(images.to(self.device), sizes.to(self.device),
-                                 group).cpu().numpy()
-        # a graph holds the head's virtual-concat mode and the DCN and stem
-        # forms it was captured in
-        key = (group, decompose_mode(False, self.compute_dtype), DCN_FORM.get(),
-               STEM_FORM.get())
-        if key not in self._graphs:
-            self._graphs[key] = Graphs(
-                lambda inp: {"det": self._predict(inp["image"], inp["im_size"], group)},
-                self.device, pool=self._pool, model=self.model)
-        # pinned, so the copies into the graph's inputs are asynchronous
-        out = self._graphs[key]({"image": images.pin_memory(), "im_size": sizes.pin_memory()})
-        return out["det"].cpu().numpy()
+        with span("serve.call"):
+            with span("serve.stage") as sp:
+                images = torch.from_numpy(np.ascontiguousarray(pimages))
+                sizes = torch.from_numpy(np.ascontiguousarray(im_sizes, np.float32))
+                if self._capture:
+                    # pinned, so the copies into the graph's inputs are asynchronous
+                    images, sizes = images.pin_memory(), sizes.pin_memory()
+                if sp is not NO_SPAN:
+                    sp.attrs["bytes"] = images.nbytes + sizes.nbytes
+            if not self._capture:
+                det = self._predict(images.to(self.device), sizes.to(self.device), group)
+            else:
+                # a graph holds the head's virtual-concat mode and the DCN and
+                # stem forms it was captured in
+                key = (group, decompose_mode(False, self.compute_dtype), DCN_FORM.get(),
+                       STEM_FORM.get())
+                if key not in self._graphs:
+                    self._graphs[key] = Graphs(
+                        lambda inp: {"det": self._predict(inp["image"], inp["im_size"], group)},
+                        self.device, pool=self._pool, model=self.model)
+                det = self._graphs[key]({"image": images, "im_size": sizes})["det"]
+            with span("serve.fetch"):
+                return det.cpu().numpy()
 
     def predict_batch(self, pimages: np.ndarray, im_sizes: np.ndarray) -> np.ndarray:
         """pimages [B,S,S,3] preprocessed; im_sizes [B,2] (h, w).

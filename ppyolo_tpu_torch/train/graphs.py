@@ -91,6 +91,7 @@ from ..ops import _build
 from ..ops.module import refresh_caches
 from ..parallel import dist
 from ..utils.mfu import counting
+from ..utils.profiling import span
 
 WARMUP_ITERS = 1
 Inputs = Dict[str, Any]   # name -> tensor, or a tuple of tensors
@@ -248,30 +249,31 @@ class Graphs:
         if key in self.captures:
             return 0.0
         t0 = time.perf_counter()
-        snap = self._snapshot()
-        if not self.captures_graphs:
-            self._counted(key, inputs)
-            self._restore(snap)
-        else:
-            static = _empty_like_on(inputs, self.device)
-            _copy_into(static, inputs)
-            self.stream.wait_stream(torch.cuda.current_stream(self.device))
-            with torch.cuda.stream(self.stream):
-                self._counted(key, static)
-                for _ in range(WARMUP_ITERS - 1):
-                    self.fn(static)
-            torch.cuda.current_stream(self.device).wait_stream(self.stream)
-            self._restore(snap)
-            graph = torch.cuda.CUDAGraph()
-            for g in self.generators:
-                graph.register_generator_state(g)
-            before = {fn: fn.captured for fn in _build.COUNTED}
-            with _NoGC(), torch.cuda.graph(graph, pool=self.pool.handle, stream=self.stream,
-                                           capture_error_mode=_capture_mode()):
-                out = self.fn(static)
-            recorded = {fn: fn.captured - before.get(fn, 0) for fn in _build.COUNTED}
-            self.graphs[key] = (graph, static, out, {f: n for f, n in recorded.items() if n})
-            torch.cuda.synchronize(self.device)
+        with span("graph.capture", key=key):
+            snap = self._snapshot()
+            if not self.captures_graphs:
+                self._counted(key, inputs)
+                self._restore(snap)
+            else:
+                static = _empty_like_on(inputs, self.device)
+                _copy_into(static, inputs)
+                self.stream.wait_stream(torch.cuda.current_stream(self.device))
+                with torch.cuda.stream(self.stream):
+                    self._counted(key, static)
+                    for _ in range(WARMUP_ITERS - 1):
+                        self.fn(static)
+                torch.cuda.current_stream(self.device).wait_stream(self.stream)
+                self._restore(snap)
+                graph = torch.cuda.CUDAGraph()
+                for g in self.generators:
+                    graph.register_generator_state(g)
+                before = {fn: fn.captured for fn in _build.COUNTED}
+                with _NoGC(), torch.cuda.graph(graph, pool=self.pool.handle, stream=self.stream,
+                                               capture_error_mode=_capture_mode()):
+                    out = self.fn(static)
+                recorded = {fn: fn.captured - before.get(fn, 0) for fn in _build.COUNTED}
+                self.graphs[key] = (graph, static, out, {f: n for f, n in recorded.items() if n})
+                torch.cuda.synchronize(self.device)
         self.captures[key] = time.perf_counter() - t0
         return self.captures[key]
 
@@ -289,9 +291,12 @@ class Graphs:
         if key not in self.graphs:
             self.prepare(inputs)
         graph, static, out, recorded = self.graphs[key]
-        self._refresh_caches()
-        _copy_into(static, inputs)
-        graph.replay()
+        with span("graph.refresh"):
+            self._refresh_caches()
+        with span("graph.upload"):
+            _copy_into(static, inputs)
+        with span("graph.launch"):
+            graph.replay()
         for fn, n in recorded.items():
             fn.launches += n
         return out

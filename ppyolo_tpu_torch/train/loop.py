@@ -35,6 +35,7 @@ from ..ops.module import resolve_device
 from ..parallel import dist
 from ..utils.logger import TrainMeter
 from ..utils.mfu import mfu
+from ..utils.profiling import span
 from .graphs import GraphedStep
 from .train_step import TrainState, init_train_state, make_multi_train_step, make_train_step
 
@@ -84,12 +85,15 @@ def step_loop(state: TrainState, step_fn, units: Iterable[Tuple[Dict, Dict]],
     meter = TrainMeter()
     unit_flops = getattr(step_fn, "unit_flops", lambda unit: None)
     while state.step < max_iters:
-        item = next(units, None)
-        if item is None:
-            break
-        unit = item[0]
-        logs = is_main and will_log(state.step, n_steps, log_every)
-        state, losses = step_fn(state, unit, generator)
+        with span("train.unit"):    # the root of the unit's spans
+            with span("train.feed"):
+                item = next(units, None)
+            if item is None:
+                break
+            unit = item[0]
+            logs = is_main and will_log(state.step, n_steps, log_every)
+            with span("train.step"):
+                state, losses = step_fn(state, unit, generator)
         n_done += n_steps
         if logs:
             if n_steps > 1:

@@ -1334,3 +1334,39 @@ def test_kernel_flops_reports_the_launches_of_a_card_unit():
         step.prepare(unit)
         flops[str(d)] = step.unit_flops(unit)
     assert flops["cpu"] > 0 and flops["cuda"] == pytest.approx(flops["cpu"], rel=1e-6)
+
+
+@pytest.mark.gpu
+def test_graph_launch_spans_hold_their_cuda_graph_launch():
+    """Five graphed bf16 mini-2x predicts at 96 px in a device trace with a
+    recording open: each ``graph.launch`` span holds the one
+    ``cudaGraphLaunch`` runtime record of its replay (the spans and the
+    profiler's records stand on one clock), inside its ``serve.call``; the
+    block's ``device_allocs`` is counted."""
+    from torch.autograd import DeviceType
+
+    from ppyolo_tpu_torch.eval.detector import Detector
+    from ppyolo_tpu_torch.models import PPYOLO
+    from ppyolo_tpu_torch.utils.profiling import device_trace, recording
+
+    dev = _cuda_or_skip()
+    cfg = _mini2x_cfg()
+    sd = PPYOLO.from_config(cfg).init_parameters(torch.Generator().manual_seed(0)).state_dict()
+    det = Detector(PPYOLO.from_config(cfg), sd, cfg, target_size=96, precision="bf16")
+    r = np.random.RandomState(5)
+    images = r.randint(0, 256, (2, 96, 96, 3)).astype(np.uint8)
+    sizes = np.array([[480, 640], [96, 96]], np.float32)
+    det.predict_batch(images, sizes)        # the capture
+    with device_trace() as prof, recording(dev) as rec:
+        for _ in range(5):
+            det.predict_batch(images, sizes)
+    launches = [(e.start_ns(), e.start_ns() + e.duration_ns())
+                for e in prof.profiler.kineto_results.events()
+                if e.device_type() == DeviceType.CPU and "cudaGraphLaunch" in e.name()]
+    by_id = {s.id: s for s in rec.spans}
+    spans = [s for s in rec.spans if s.name == "graph.launch"]
+    assert len(spans) == len(launches) == 5
+    for s in spans:
+        assert sum(s.start_ns <= a and b <= s.end_ns for a, b in launches) == 1, s
+        assert by_id[s.root].name == "serve.call"
+    assert rec.counters["device_allocs"] >= 0
