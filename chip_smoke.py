@@ -37,7 +37,12 @@ Phases, one JSON line each; any failure exits non-zero:
                its plain version (the eager suppress matrix and the
                fixpoint), timed beside it and, at k = 500, beside its first
                form with the eager chain that fed it (``tools/kernel_ab``);
-               bounds at 1,979 TOP/s int8 (K5) and 67 TFLOP/s fp32 (K6).
+               bounds at 1,979 TOP/s int8 (K5) and 67 TFLOP/s fp32 (K6);
+               K7 (train-mode BatchNorm with its activation) on the 76
+               BatchNorm layers of a b8@608 fine-tuning step, each held
+               against autograd of ``_forward_train`` and its activation,
+               all forwards and backwards timed in one CUDA graph beside
+               the plain chain and the bound (16 bytes an element).
                Weights are packed once, outside the timed window.  K1 and
                K3 are timed inside a CUDA graph of 20 calls
                (``kernel_ab.graph_ms``: their wrappers' host work outlasts
@@ -334,7 +339,8 @@ PSROI_MAP, PSROI_ROIS = 38, 300
 # the path whose run gives each kernel's ``launches``
 EXPORT_DIR = REPO / "build" / "chip_smoke_export"   # artifacts and converted weights
 MAIN_PATH = {"dcn_fwd": "serving", "fused_stem": "serving", "dcn_bwd": "training",
-             "conv_s2": "probe", "conv_int8": "int8_serving", "nms_keep": "multiclass"}
+             "conv_s2": "probe", "conv_int8": "int8_serving", "nms_keep": "multiclass",
+             "bn_train_fwd": "training"}
 
 
 SMI = ""   # nvidia-smi's name and power limit, set by phase_device
@@ -369,6 +375,7 @@ def wrappers() -> dict:
     """Each kernel's launch wrapper: ``launches`` counts its kernel's
     launches (a CUDA graph adds the calls it recorded at each replay),
     ``captured`` the calls recorded into graphs."""
+    from ppyolo_tpu_torch.ops.bn_train import bn_train_bwd, bn_train_fwd
     from ppyolo_tpu_torch.ops.conv_int8 import quantized_conv2d
     from ppyolo_tpu_torch.ops.deform_conv_cuda import dcn_bwd, dcn_fwd
     from ppyolo_tpu_torch.ops.matrix_nms import nms_keep
@@ -376,7 +383,8 @@ def wrappers() -> dict:
     from ppyolo_tpu_torch.ops.strided_conv import conv_s2
 
     return {"dcn_fwd": dcn_fwd, "dcn_bwd": dcn_bwd, "fused_stem": fused_stem,
-            "conv_s2": conv_s2, "conv_int8": quantized_conv2d, "nms_keep": nms_keep}
+            "conv_s2": conv_s2, "conv_int8": quantized_conv2d, "nms_keep": nms_keep,
+            "bn_train_fwd": bn_train_fwd, "bn_train_bwd": bn_train_bwd}
 
 
 def zero_counts() -> None:
@@ -395,6 +403,27 @@ def read_captured() -> dict:
 def expect(per_unit: dict, units: int) -> dict:
     """Every wrapper's count for ``units`` units that launch ``per_unit``."""
     return {k: per_unit.get(k, 0) * units for k in wrappers()}
+
+
+def bn_calls(model, remat: bool = False) -> dict:
+    """K7's calls in one training step of ``model``: a forward for every
+    BatchNorm (the backbone's twice under remat, which recomputes it) and a
+    backward for each layer with a trainable parameter (the frozen stages
+    come first, so a gradient reaches no frozen layer)."""
+    from ppyolo_tpu_torch.ops.conv import ConvNormAct
+
+    layers = [(name, m) for name, m in model.named_modules()
+              if isinstance(m, ConvNormAct) and m.bn is not None]
+    again = sum(name.startswith("backbone.") for name, _ in layers) if remat else 0
+    return {"bn_train_fwd": len(layers) + again,
+            "bn_train_bwd": sum(any(p.requires_grad for p in m.parameters()) for _, m in layers)}
+
+
+def cfg_bn_calls(cfg) -> dict:
+    """``bn_calls`` of the model ``cfg`` builds (on the CPU, untouched)."""
+    from ppyolo_tpu_torch.models import PPYOLO
+
+    return bn_calls(PPYOLO.from_config(cfg))
 
 
 def warmup_iters() -> int:
@@ -590,7 +619,113 @@ def phase_kernels():
     rows["conv_s2"] = kernel_k4(gen, dev)
     rows["conv_int8"] = kernel_k5(gen, dev)
     rows["nms_keep"] = kernel_k6(gen, dev)
+    rows["bn_train_fwd"] = kernel_k7(dev)
     return rows
+
+
+def bn_train_layers(cfg) -> list:
+    """(C, H, W, act) of every BatchNorm of ``cfg``'s model at SIZE, in
+    forward order, with the activation K7 applies there (its layer's, or
+    None where that is mish): read by forward pre-hooks on one eval forward
+    of one image on the card."""
+    import torch
+    from ppyolo_tpu_torch.models import PPYOLO
+    from ppyolo_tpu_torch.ops.bn_train import ACTS
+    from ppyolo_tpu_torch.ops.conv import ConvNormAct
+
+    model = PPYOLO.from_config(cfg).to("cuda").eval()
+    acts = {m.bn: m.act for m in model.modules() if isinstance(m, ConvNormAct) and m.bn}
+    layers = []
+
+    def hook(bn, inp):
+        _, c, h, w = inp[0].shape
+        layers.append((c, h, w, acts[bn] if acts[bn] in ACTS else None))
+
+    hooks = [bn.register_forward_pre_hook(hook) for bn in acts]
+    with torch.no_grad():
+        model.outputs(torch.zeros(1, 3, SIZE, SIZE, device="cuda"))
+    for h in hooks:
+        h.remove()
+    return layers
+
+
+def kernel_k7(dev) -> dict:
+    """K7 on one fine-tuning step's BatchNorm layers of ppyolo_2x at
+    b8@608 (bf16 activations and parameters, fp32 running statistics): each
+    layer's forward and backward held against autograd of
+    ``_forward_train`` then its activation (``check_close``); all layers'
+    forwards then backwards (in reverse) timed in one CUDA graph, beside
+    the plain chain (eager autograd, every layer) and the bound: 16 bytes an
+    element (x read twice, y written; dy and x read twice, dx written), and
+    10 where each input is read once."""
+    import torch
+    from ppyolo_tpu_torch.ops.bn_train import bn_train, bn_train_bwd, bn_train_fwd
+    from ppyolo_tpu_torch.ops.conv import apply_act
+    from ppyolo_tpu_torch.ops.module import BN_EPS, BN_MOMENTUM, BatchNorm
+    from ppyolo_tpu_torch.tools.kernel_ab import graph_ms
+
+    layers = bn_train_layers(train_config())
+    gen = torch.Generator(device=dev).manual_seed(7)
+    cl, bf = torch.channels_last, torch.bfloat16
+    sets = []
+    for c, h, w, act in layers:
+        shape = (BATCH, c, h, w)
+        x = (torch.randn(shape, generator=gen, device=dev) * 1.5 + 0.2).to(bf)
+        sets.append(dict(
+            x=x.contiguous(memory_format=cl), act=act,
+            dy=torch.randn(shape, generator=gen, device=dev).to(bf).contiguous(memory_format=cl),
+            w=(torch.randn(c, generator=gen, device=dev) * 0.2 + 1).to(bf),
+            b=(torch.randn(c, generator=gen, device=dev) * 0.2).to(bf),
+            rm=torch.zeros(c, device=dev), rv=torch.ones(c, device=dev)))
+    err = 0.0
+    for s in sets:   # each layer against the plain chain
+        xg, wg, bg = (s[k].clone().requires_grad_(True) for k in ("x", "w", "b"))
+        y = bn_train(xg, wg, bg, s["rm"].clone(), s["rv"].clone(), act=s["act"], update=True,
+                     sync=False, eps=BN_EPS, momentum=BN_MOMENTUM)
+        got = (y,) + torch.autograd.grad(y, (xg, wg, bg), s["dy"])
+        bn = BatchNorm(xg.shape[1]).to(dev).train()
+        bn.weight, bn.bias = (torch.nn.Parameter(s[k].clone()) for k in ("w", "b"))
+        xp = s["x"].clone().requires_grad_(True)
+        yp = apply_act(bn._forward_train(xp), s["act"])
+        want = (yp,) + torch.autograd.grad(yp, (xp, bn.weight, bn.bias), s["dy"])
+        for name, g, wt in zip(("y", "dx", "dweight", "dbias"), got, want):
+            err = max(err, check_close(f"bn_train {tuple(xg.shape)} {s['act']} {name}", g,
+                                       wt)["max_abs_err"] / max(float(wt.float().abs().max()),
+                                                                1e-30))
+    torch.cuda.synchronize()
+
+    def step():
+        kw = dict(eps=BN_EPS)
+        outs = [bn_train_fwd(s["x"], s["w"], s["b"], s["rm"], s["rv"], act=s["act"],
+                             update=True, momentum=BN_MOMENTUM, **kw) for s in sets]
+        for s, (_, sums) in zip(reversed(sets), reversed(outs)):
+            bn_train_bwd(s["dy"], s["x"], sums, s["w"], s["b"], act=s["act"], **kw)
+
+    def plain():
+        for s in sets:
+            bn = BatchNorm(s["x"].shape[1]).to(dev).train()
+            bn.weight, bn.bias = (torch.nn.Parameter(s[k].clone()) for k in ("w", "b"))
+            xp = s["x"].clone().requires_grad_(True)
+            yp = apply_act(bn._forward_train(xp), s["act"])
+            torch.autograd.grad(yp, (xp, bn.weight, bn.bias), s["dy"])
+
+    ms = graph_ms(step, 3)
+    pms = cuda_ms(plain, 3, warmup=1)
+    elems = sum(s["x"].numel() for s in sets)
+    b16, _ = bound_ms(0.0, 16 * elems)
+    b10, _ = bound_ms(0.0, 10 * elems)
+    by_act = {str(a): sum(1 for s in sets if s["act"] == a) for a in (None, "relu", "leaky")}
+    row = dict(name="bn_train", route="cuda", source="ppyolo_tpu_torch/csrc/bn_train.cu",
+               replaces="none: JAX leaves batch_norm to XLA (ppyolo_tpu/ops/conv.py::batch_norm)",
+               per=f"training step of {BATCH} ({len(sets)} layers, forward and backward)",
+               layers=len(sets), acts=by_act, elements_per_step=elems, ms=ms, plain_ms=pms,
+               bound_ms=b16, bound_by="bytes", bound_ms_each_input_once=b10,
+               gb_per_s=16 * elems / ms / 1e6, x_bound=ms / b16, max_rel_err=err,
+               library_ms=None)
+    emit({"phase": "kernel_check", "kernel": "bn_train", **row})
+    del sets
+    torch.cuda.empty_cache()
+    return row
 
 
 def kernel_k4(gen, dev) -> dict:
@@ -1095,7 +1230,8 @@ def kernel_launches(prof, units: int) -> dict:
     kernel names (inside CUDA graph replays too)."""
     names = {"dcn_fwd": ("dcn_fwd_kernel",), "dcn_bwd": ("dcn_bwd_kernel",),
              "fused_stem": ("fused_stem_kernel",), "conv_s2": ("conv_s2_",),
-             "conv_int8": ("conv_int8_kernel",), "nms_keep": ("nms_keep_kernel",)}
+             "conv_int8": ("conv_int8_kernel",), "nms_keep": ("nms_keep_kernel",),
+             "bn_train_fwd": ("bn_train_fwd_stats",), "bn_train_bwd": ("bn_train_bwd_stats",)}
     ev = [e for e in prof.key_averages() if e.self_device_time_total > 0]
     return {k: sum(e.count for e in ev if any(n in e.key for n in keys)) / units
             for k, keys in names.items()}
@@ -1880,7 +2016,7 @@ def phase_training(smi: str):
     launches, captured = read_counts(), read_captured()
     # one CUDA graph (b8@608), captured at the first step after its eager
     # warm-up run; every step is a replay
-    per_step = {"dcn_fwd": 3, "dcn_bwd": 3}
+    per_step = {"dcn_fwd": 3, "dcn_bwd": 3, **bn_calls(model)}
     if (launches != expect(per_step, n_steps + warmup_iters())
             or captured != expect(per_step, 1)):
         raise AssertionError(f"training launch counts {launches}, captured {captured}: "
@@ -1938,10 +2074,12 @@ def phase_train_profile(state, cfg, host, step_ms: float):
     check_counts_in_trace(prof, "graphed fine-tuning")
     total, top, by_class = device_time(prof, 3, 30)
     per_step = kernel_launches(prof, 3)
-    if per_step != expect({"dcn_fwd": 3, "dcn_bwd": 3}, 1):
+    if per_step != expect({"dcn_fwd": 3, "dcn_bwd": 3, **bn_calls(state.model)}, 1):
         raise AssertionError(f"graphed fine-tuning: launches per step {per_step} in the trace")
     ours = {k: sum(e.self_device_time_total for e in prof.key_averages() if k in e.key) / 3e3
-            for k in ("dcn_fwd_kernel", "dcn_bwd_kernel", "dcn_bwd_gather")}
+            for k in ("dcn_fwd_kernel", "dcn_bwd_kernel", "dcn_bwd_gather", "bn_train_fwd_stats",
+                      "bn_train_fwd_apply", "bn_train_bwd_stats", "bn_train_bwd_dx",
+                      "bn_train_reduce")}
     emit({"phase": "train_profile", "steps": 3, "ms_per_step_median": step_ms,
           "device_ms_per_step": total, "launches_per_step": per_step, "device_idle_share": max(0.0, 1.0 - total / step_ms),
           "kernel_ms_per_step": ours, "by_class": by_class, "top": top})
@@ -2083,7 +2221,8 @@ def phase_graphs_training(smi: str) -> dict:
                            "device_ms_per_step": device_ms,
                            "device_idle_share": max(0.0, 1.0 - device_ms / ms),
                            "launches_per_step": kernel_launches(prof, GRAPH_STEPS)}
-            if speed[name]["launches_per_step"] != expect({"dcn_fwd": 3, "dcn_bwd": 3}, 1):
+            if speed[name]["launches_per_step"] != expect(
+                    {"dcn_fwd": 3, "dcn_bwd": 3, **bn_calls(graph_state.model)}, 1):
                 raise AssertionError(f"{name}: launches per step "
                                      f"{speed[name]['launches_per_step']}")
     finally:
@@ -2334,11 +2473,12 @@ def phase_entry(smi: str):
     # runs no K3)
     n_warm = warmup_iters()
     train_steps = ENTRY_STEPS + n_warm * ENTRY_SCAN * n_sizes
+    per_step = {"dcn_fwd": 3, **cfg_bn_calls(cfg)}
     want = {k: a + b for (k, a), b in zip(
-        expect({"dcn_fwd": 3}, train_steps).items(),
+        expect(per_step, train_steps).items(),
         expect({"dcn_fwd": 3, "fused_stem": 1}, n_eval_batches + n_warm).values())}
     want_captured = {k: a + b for (k, a), b in zip(
-        expect({"dcn_fwd": 3}, ENTRY_SCAN * n_sizes).items(),
+        expect(per_step, ENTRY_SCAN * n_sizes).items(),
         expect({"dcn_fwd": 3, "fused_stem": 1}, 1).values())}
     if state.step != ENTRY_STEPS or launches != want or captured != want_captured:
         raise AssertionError(f"entry run: {state.step} steps, launches {launches}, captured "
@@ -2514,7 +2654,7 @@ def entry_steady(state, cfg, records) -> dict:
     check_counts_in_trace(prof, "steady steps")
     total, top, by_class = device_time(prof, n_host, 12)
     per_step = kernel_launches(prof, n_host)
-    if per_step != expect({"dcn_fwd": 3}, 1):
+    if per_step != expect({"dcn_fwd": 3, **bn_calls(state.model)}, 1):
         raise AssertionError(f"steady steps: launches per step {per_step} in the trace")
     unit = {k: torch.from_numpy(np.stack([b[k] for b in host[:ENTRY_SCAN]])).to(dev)
             for k in ("image", "gt_bbox", "gt_class", "gt_score")}
@@ -2771,7 +2911,8 @@ def dist_nccl(root: Path, data: dict):
                    nccl_kernel_names=sorted({e.key[:60] for e in nccl}),
                    device_ms_per_step=device_time(prof, 1)[0],
                    launches_per_step=kernel_launches(prof, 1))
-        if out["launches_per_step"] != expect({"dcn_fwd": 3, "dcn_bwd": 3}, 1):
+        if out["launches_per_step"] != expect(
+                {"dcn_fwd": 3, "dcn_bwd": 3, **bn_calls(state1.model)}, 1):
             raise AssertionError(f"replay under the group: launches {out['launches_per_step']}")
 
         # remat against the plain step (the first of ``want``)
@@ -2788,7 +2929,7 @@ def dist_nccl(root: Path, data: dict):
         out["host_ms_per_unit_plain_again"] = unit_ms(state1, unit1)
         if out["remat_losses_rel_to_plain"] > 2e-3:
             raise AssertionError(f"remat losses {out['remat_losses_rel_to_plain']} from plain")
-        per_step = {"dcn_fwd": 6, "dcn_bwd": 3}
+        per_step = {"dcn_fwd": 6, "dcn_bwd": 3, **bn_calls(state2.model, remat=True)}
         if (recorded != expect(per_step, 1)
                 or launched != expect(per_step, 1 + warmup_iters())):
             raise AssertionError(f"remat step: launches {launched}, captured {recorded}")
@@ -3105,7 +3246,8 @@ def phase_cards(smi: str) -> dict:
     bad = [r["rank"] for r in ranks
            if not (all(r["lockstep"]) and len(r["lockstep"]) == CARDS_STEPS
                    and r["nccl_kernels_per_step"] > 0
-                   and r["launches_per_step"] == expect({"dcn_fwd": 3, "dcn_bwd": 3}, 1)
+                   and r["launches_per_step"] == expect(
+                       {"dcn_fwd": 3, "dcn_bwd": 3, **cfg_bn_calls(dist_train_config())}, 1)
                    and r["entry_step"] == DIST_ENTRY_STEPS and r["entry_replicas_equal"]
                    and r["entry_dcp_steps"] == [half, DIST_ENTRY_STEPS])]
     need = {f"step{half:08d}.npz", f"step{DIST_ENTRY_STEPS:08d}.npz", "last_state.npz",
@@ -3374,7 +3516,7 @@ def phase_gn_training(smi: str):
                                   log_fn=lambda i, v, info: logged.append((i, v, info)))
     torch.cuda.synchronize()
     launches, captured = read_counts(), read_captured()
-    per_step = {"dcn_fwd": 3, "dcn_bwd": 3}
+    per_step = {"dcn_fwd": 3, "dcn_bwd": 3, **bn_calls(model)}
     if (launches != expect(per_step, n_steps + warmup_iters())
             or captured != expect(per_step, 1)):
         raise AssertionError(f"GN training launch counts {launches}, captured {captured}: "
@@ -3676,6 +3818,8 @@ def main() -> int:
         row["launches"] = by_path[MAIN_PATH[k]]
         row["launches_by_path"] = by_path
         row["captured_by_path"] = {path: c[1][k] for path, c in counts.items()}
+    row = rows["bn_train_fwd"]   # K7's row counts its forward; its backward beside it
+    row["bwd_launches_by_path"] = {path: c[0]["bn_train_bwd"] for path, c in counts.items()}
     emit({"kernels": list(rows.values())})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

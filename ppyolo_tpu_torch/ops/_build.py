@@ -37,7 +37,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("dcn_fwd", "dcn_bwd", "fused_stem", "conv_s2", "conv_int8", "nms_keep")
+SOURCES = ("dcn_fwd", "dcn_bwd", "fused_stem", "conv_s2", "conv_int8", "nms_keep",
+           "bn_train")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
 

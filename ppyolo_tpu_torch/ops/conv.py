@@ -42,6 +42,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .bn_train import ACTS as BN_TRAIN_ACTS
 from .conv_int8 import dynamic_act_scale, pack_int8_weight, quantized_conv2d
 from .deform_conv import deform_conv2d, needs_grad
 from .module import (AffineChannel, BatchNorm, GroupNorm, ParamPolicy, flatten_tree,
@@ -321,6 +322,8 @@ class ConvNormAct(nn.Module):
 
     def _norm_act(self, x: torch.Tensor) -> torch.Tensor:
         """The norm, then the activation (``ppyolo_tpu/ops/conv.py::_norm_act``)."""
+        if self.bn is not None and self.bn.training and x.is_cuda and self.act in BN_TRAIN_ACTS:
+            return self.bn(x, self.act)   # K7 applies the activation (ops/bn_train.py)
         norm = self.norm_layer()
         if norm is not None:
             x = norm(x)

@@ -21,6 +21,7 @@ import torch.distributed.nn.functional as dist_fn
 from torch import nn
 
 from ..parallel import dist
+from .bn_train import bn_train
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1  # torch convention: running = (1-m)*running + m*batch
@@ -198,6 +199,12 @@ class BatchNorm(nn.Module):
     ``sync`` each rank keeps statistics of its own batch, as each JAX
     replica does under ``norm="bn"``.
 
+    On a CUDA tensor train mode runs K7 instead (``ops/bn_train.py``): the
+    same statistics, clamp, running update and sync from a statistics pass
+    and one normalize + affine + activation pass forward, two passes
+    backward.  ``act`` (None, "relu" or "leaky") is that path's fused
+    activation; on any other path the caller applies its activation.
+
     Eval mode is one fused pass, ``x * k + b`` with ``k = weight *
     rsqrt(var + eps)`` and ``b = bias - mean * k`` computed on the [C]
     vectors in fp32 (fp64 for an fp64 input).  The JAX package evaluates
@@ -223,7 +230,14 @@ class BatchNorm(nn.Module):
             self.running_mean.zero_()
             self.running_var.fill_(1.0)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, act: Optional[str] = None) -> torch.Tensor:
+        if self.training and x.is_cuda:
+            return bn_train(x, self.weight, self.bias, self.running_mean, self.running_var,
+                            act=act, update=not getattr(_RECOMPUTE, "on", False),
+                            sync=self.sync and dist.active(), eps=BN_EPS, momentum=BN_MOMENTUM)
+        if act is not None:
+            raise ValueError("BatchNorm applies an activation only on its train kernels' "
+                             "path (a CUDA tensor in training)")
         if self.training:
             return self._forward_train(x)
         k, b = self.eval_affine(x.dtype)

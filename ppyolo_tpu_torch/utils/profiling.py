@@ -186,7 +186,8 @@ def cuda_ms(fn: Callable, iters: int, warmup: int = 3) -> float:
 
 KERNEL_CLASSES = (   # (class, substrings of the kernel name), first match wins
     ("port_kernels", ("dcn_fwd_kernel", "dcn_bwd_kernel", "dcn_bwd_gather",
-                      "fused_stem_kernel", "conv_s2_", "conv_int8_kernel", "nms_keep_kernel")),
+                      "fused_stem_kernel", "conv_s2_", "conv_int8_kernel", "nms_keep_kernel",
+                      "bn_train_")),
     ("conv_gemm", ("xmma", "nvjet", "cutlass", "gemm", "cudnn", "dgrad", "wgrad")),
     ("copy_memset", ("Memcpy", "Memset", "copy_kernel", "CatArray")),
     ("elementwise_reduce", ("at::native",)),

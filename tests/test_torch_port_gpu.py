@@ -1370,3 +1370,255 @@ def test_graph_launch_spans_hold_their_cuda_graph_launch():
         assert sum(s.start_ns <= a and b <= s.end_ns for a, b in launches) == 1, s
         assert by_id[s.root].name == "serve.call"
     assert rec.counters["device_allocs"] >= 0
+
+
+# K7, train-mode BatchNorm with its activation: ppyolo_2x's stem (C 32 at
+# 304²), stage 2 (C 256 at 152²), stage 5 (C 2048 at 19²) and a head layer
+# (C 512 at 38²), at b8
+BN_SHAPES = [(8, 32, 304, 304), (8, 256, 152, 152), (8, 2048, 19, 19), (8, 512, 38, 38)]
+# max-abs error over the plain path's max-abs.  y and dx: rounded to x's
+# dtype after fp32 statistics summed in another order; bf16 keeps 8 bits, and
+# in fp32 a channel whose offset is large against its spread loses digits to
+# E[x²] - m² in both paths (1.8e-5 of y read at C 512, 38²).  dweight and
+# dbias: fp32 sums of 10^4-10^6 terms in another order, rounded to the
+# parameters' dtype.  Running statistics: fp32.  Where y lies a rounding
+# from 0 the two paths may disagree on the activation's mask (a handful of
+# elements in 10^7): ``_bn_compare`` leaves those elements out of dx and
+# allows dweight and dbias their gradient.
+BN_TOL = {torch.bfloat16: dict(y=1e-2, dx=2e-2, dparam=1e-2, running=1e-5),
+          torch.float32: dict(y=1e-4, dx=1e-4, dparam=1e-4, running=1e-5)}
+BN_OUTS = ("y", "dx", "dweight", "dbias", "running_mean", "running_var")
+
+
+def _bn_case(shape, dtype, seed, dev):
+    g = torch.Generator().manual_seed(seed)
+    n, c, h, w = shape
+    cl = torch.channels_last
+    # per-channel offsets and scales, as a conv's output has them
+    x = (torch.randn(shape, generator=g) * (torch.rand(c, 1, 1, generator=g) * 2 + 0.2)
+         + torch.randn(c, 1, 1, generator=g))
+    params = [torch.randn(c, generator=g) * 0.3 + 1.0, torch.randn(c, generator=g) * 0.5]
+    running = [torch.randn(c, generator=g) * 0.1, torch.rand(c, generator=g) + 0.5]
+    dy = torch.randn(shape, generator=g)
+    return (x.to(dev, dtype).contiguous(memory_format=cl), [p.to(dev, dtype) for p in params],
+            [r.to(dev) for r in running], dy.to(dev, dtype).contiguous(memory_format=cl))
+
+
+def _bn_close(name, got, want, rel, slack=0.0):
+    err = (got.float() - want.float()).abs()
+    ref = float(want.float().abs().max())
+    assert bool((err <= rel * max(ref, 1e-30) + slack).all()), (
+        f"{name}: max-abs error {float(err.max())} over {ref}")
+
+
+def _bn_plain(x, params, running, dy, act):
+    """autograd of ``_forward_train`` then ``apply_act``, on the card; with
+    the pre-activation y as ``pre``."""
+    from ppyolo_tpu_torch.ops.conv import apply_act
+    from ppyolo_tpu_torch.ops.module import BatchNorm
+
+    bn = BatchNorm(x.shape[1]).to(x.device).train()
+    with torch.no_grad():
+        for t, v in zip((bn.running_mean, bn.running_var), running):
+            t.copy_(v)
+    bn.weight, bn.bias = (torch.nn.Parameter(p.clone()) for p in params)
+    xg = x.clone().requires_grad_(True)
+    pre = bn._forward_train(xg)
+    y = apply_act(pre, act)
+    grads = torch.autograd.grad(y, (xg, bn.weight, bn.bias), dy)
+    return dict(zip(BN_OUTS, (y.detach(),) + grads + (bn.running_mean, bn.running_var)),
+                pre=pre.detach())
+
+
+def _bn_fused(x, params, running, dy, act, **kw):
+    from ppyolo_tpu_torch.ops.bn_train import bn_train
+    from ppyolo_tpu_torch.ops.module import BN_EPS, BN_MOMENTUM
+
+    rm, rv = (r.clone() for r in running)
+    w, b = (p.clone().requires_grad_(True) for p in params)
+    xg = x.clone().requires_grad_(True)
+    y = bn_train(xg, w, b, rm, rv, act=act, update=kw.get("update", True), sync=False,
+                 eps=BN_EPS, momentum=BN_MOMENTUM)
+    dx, dw, db = torch.autograd.grad(y, (xg, w, b), dy)
+    return dict(zip(BN_OUTS, (y.detach(), dx, dw, db, rm, rv)))
+
+
+def _bn_compare(got, want, pre, x, dy, act, dtype):
+    """``got`` against ``want`` within BN_TOL, where ``pre`` is the plain
+    path's pre-activation y.  An element whose mask the two disagree on must
+    lie within the y tolerance of 0, and at most 1e-5 of them (or one); dx leaves
+    them out, and dweight and dbias may differ by their terms."""
+    from ppyolo_tpu_torch.ops.module import BN_EPS
+
+    tol = BN_TOL[dtype]
+    flip = torch.zeros(x.shape, dtype=torch.bool, device=x.device)
+    if act is not None:
+        flip = (got["y"] > 0) != (pre > 0)
+        near = pre.float().abs() <= tol["y"] * float(pre.float().abs().max())
+        assert bool((near | ~flip).all()), "the activation's mask differs away from y ~ 0"
+        assert int(flip.sum()) <= max(1.0, 1e-5 * flip.numel()), int(flip.sum())
+    xf = x.float()
+    m = xf.mean((0, 2, 3), keepdim=True)
+    invstd = torch.rsqrt(xf.var((0, 2, 3), unbiased=False, keepdim=True) + BN_EPS)
+    lost = dy.float().abs() * flip
+    slack = {"dbias": lost.sum((0, 2, 3)),
+             "dweight": (lost * (xf - m).abs() * invstd).sum((0, 2, 3))}
+    for name in BN_OUTS:
+        g, w = got[name], want[name]
+        if name == "dx":
+            g, w = g[~flip], w[~flip]
+        rel = tol[{"dweight": "dparam", "dbias": "dparam", "running_mean": "running",
+                   "running_var": "running"}.get(name, name)]
+        _bn_close(name, g, w, rel, slack.get(name, 0.0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", [None, "relu", "leaky"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", BN_SHAPES + [(3, 12, 9, 7), (2, 20, 5, 11)])
+def test_bn_train_kernels_match_autograd_of_plain(shape, dtype, act):
+    """K7 forward and backward against autograd of ``_forward_train`` then
+    the activation on the same inputs: y, dx, dweight, dbias and both
+    running statistics within ``BN_TOL`` (``_bn_compare``); one forward and
+    one backward counted; outputs channels_last in x's and the parameters'
+    dtypes.  C 12 (and C 20 in bf16) is no multiple of a 16-byte vector:
+    the kernels load an element a thread there."""
+    from ppyolo_tpu_torch.ops.bn_train import bn_train_bwd, bn_train_fwd
+
+    dev = _cuda_or_skip()
+    case = _bn_case(shape, dtype, 17, dev)
+    counts = (bn_train_fwd.launches, bn_train_bwd.launches)
+    got = _bn_fused(*case, act)
+    torch.cuda.synchronize()
+    assert (bn_train_fwd.launches - counts[0], bn_train_bwd.launches - counts[1]) == (1, 1)
+    want = _bn_plain(*case, act)
+    assert got["y"].dtype == got["dx"].dtype == got["dweight"].dtype == dtype
+    assert got["y"].is_contiguous(memory_format=torch.channels_last)
+    assert got["dx"].is_contiguous(memory_format=torch.channels_last)
+    _bn_compare(got, want, want["pre"], case[0], case[3], act, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", [None, "leaky"])
+def test_bn_train_graphed_replay_is_bitwise_eager(act):
+    """One forward and backward of K7 captured in a CUDA graph and replayed
+    equals the eager call bit for bit (fixed-order sums, no atomics),
+    running statistics included; the capture records one call of each
+    wrapper and launches none."""
+    from ppyolo_tpu_torch.ops.bn_train import bn_train, bn_train_bwd, bn_train_fwd
+    from ppyolo_tpu_torch.ops.module import BN_EPS, BN_MOMENTUM
+
+    dev = _cuda_or_skip()
+    x, (w, b), (rm, rv), dy = _bn_case((8, 256, 76, 76), torch.bfloat16, 23, dev)
+    x.requires_grad_(True)
+    w.requires_grad_(True)
+    b.requires_grad_(True)
+    rm0, rv0 = rm.clone(), rv.clone()
+
+    def step():
+        y = bn_train(x, w, b, rm, rv, act=act, update=True, sync=False, eps=BN_EPS,
+                     momentum=BN_MOMENTUM)
+        return (y,) + torch.autograd.grad(y, (x, w, b), dy)
+
+    want = [t.detach().clone() for t in step()]   # no autograd graph kept alive
+    want_running = (rm.clone(), rv.clone())
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    counts = [(f.launches, f.captured) for f in (bn_train_fwd, bn_train_bwd)]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = step()
+    assert [(f.launches, f.captured) for f in (bn_train_fwd, bn_train_bwd)] == [
+        (a, c + 1) for a, c in counts]
+    rm.copy_(rm0)
+    rv.copy_(rv0)
+    graph.replay()
+    torch.cuda.synchronize()
+    for g, wt in zip(out, want):
+        assert torch.equal(g, wt)
+    assert torch.equal(rm, want_running[0]) and torch.equal(rv, want_running[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", [None, "relu", "leaky"])
+def test_bn_train_split_batch_with_added_sums_is_the_whole_batch(act):
+    """Sync-BN's arithmetic on one card: each half of a batch with the
+    other half's [2C] sums added to its own (by hand, where the all-reduce
+    would add them) over n × 2 values gives the whole batch's y, running
+    statistics and dx, and the halves' dweight and dbias add up to the
+    whole batch's, within ``BN_TOL`` (the halves sum in another order)."""
+    from ppyolo_tpu_torch.ops.bn_train import bn_train_bwd, bn_train_fwd
+    from ppyolo_tpu_torch.ops.module import BN_EPS, BN_MOMENTUM
+
+    dev = _cuda_or_skip()
+    x, (w, b), running, dy = _bn_case((8, 512, 38, 38), torch.bfloat16, 29, dev)
+    kw = dict(act=act, eps=BN_EPS)
+    whole = _bn_fused(x, (w, b), running, dy, act)
+    pre = _bn_plain(x, (w, b), running, dy, act)["pre"]
+    halves, dys = x.chunk(2), dy.chunk(2)
+    own = {}
+
+    def keep(i):
+        return lambda s: own.__setitem__(i, s.clone())
+
+    def add_other(i):
+        return lambda s: s.add_(own[1 - i])
+
+    rm, rv = (r.clone() for r in running)
+    for i, h in enumerate(halves):
+        bn_train_fwd(h, w, b, rm, rv, update=False, momentum=BN_MOMENTUM, all_reduce=keep(i),
+                     world=2, **kw)
+    fwd = [bn_train_fwd(h, w, b, rm, rv, update=i == 0, momentum=BN_MOMENTUM,
+                        all_reduce=add_other(i), world=2, **kw) for i, h in enumerate(halves)]
+    for i, (g, h) in enumerate(zip(dys, halves)):
+        bn_train_bwd(g, h, fwd[i][1], w, b, all_reduce=keep(i), world=2, **kw)
+    bwd = [bn_train_bwd(g, h, fwd[i][1], w, b, all_reduce=add_other(i), world=2, **kw)
+           for i, (g, h) in enumerate(zip(dys, halves))]
+    torch.cuda.synchronize()
+    assert torch.equal(fwd[0][1], fwd[1][1])
+    got = dict(y=torch.cat([f[0] for f in fwd]), dx=torch.cat([o[0] for o in bwd]),
+               dweight=bwd[0][1].float() + bwd[1][1].float(),
+               dbias=bwd[0][2].float() + bwd[1][2].float(), running_mean=rm, running_var=rv)
+    _bn_compare(got, whole, pre, x, dy, act, torch.bfloat16)
+
+
+@pytest.mark.gpu
+def test_bn_train_recompute_leaves_running_statistics_and_zero_variance_clamps():
+    """Under ``_recomputing()`` a BatchNorm in training on the card leaves
+    its running statistics as they were and gives the same y.  A channel of
+    1.0 everywhere has E[x²] - m² = 0 exactly: v = 0, so y is the bias (its
+    activation), the running variance moves to 0.9 of itself and the mean
+    to 0.9 m + 0.1, bit for bit as the plain expression; dx there is
+    k * (g - mean g) with the clamp's factor on a zero (x - m)."""
+    from ppyolo_tpu_torch.ops.bn_train import bn_train
+    from ppyolo_tpu_torch.ops.module import BN_EPS, BN_MOMENTUM, BatchNorm, _recomputing
+
+    dev = _cuda_or_skip()
+    x, (w, b), (rm, rv), dy = _bn_case((8, 64, 38, 38), torch.bfloat16, 31, dev)
+    x[:, 5] = 1.0
+    bn = BatchNorm(64).to(dev).train()
+    with torch.no_grad():
+        for t, v in zip((bn.weight, bn.bias, bn.running_mean, bn.running_var),
+                        (w, b, rm, rv)):
+            t.copy_(v)
+    before = (bn.running_mean.clone(), bn.running_var.clone())
+    with torch.no_grad(), _recomputing():
+        y_re = bn(x, "relu")
+    assert torch.equal(bn.running_mean, before[0]) and torch.equal(bn.running_var, before[1])
+    with torch.no_grad():
+        y = bn(x, "relu")
+    assert torch.equal(y, y_re)
+    assert torch.equal(y[:, 5], torch.relu(b[5].float()).to(y.dtype).expand_as(y[:, 5]))
+    assert torch.equal(bn.running_var[5], (1 - BN_MOMENTUM) * before[1][5])
+    assert torch.equal(bn.running_mean[5], (1 - BN_MOMENTUM) * before[0][5] + BN_MOMENTUM * 1.0)
+    xg, wg, bg = (t.clone().requires_grad_(True) for t in (x, w, b))
+    y = bn_train(xg, wg, bg, rm.clone(), rv.clone(), act=None, update=True, sync=False,
+                 eps=BN_EPS, momentum=BN_MOMENTUM)
+    dx = torch.autograd.grad(y, xg, dy)[0]
+    g = dy[:, 5].float()
+    k = float(w[5].float()) * (BN_EPS ** -0.5)
+    want = (k * (g - g.mean())).to(dx.dtype)
+    _bn_close("dx of the zero-variance channel", dx[:, 5], want, 1e-2)
