@@ -53,7 +53,44 @@ def no_nms_decay():
         matrix_nms.pairwise_iou = iou
 
 
+@contextlib.contextmanager
+def no_exchange():
+    """Sync-BN with the exchange between the ranks left out: every
+    BatchNorm of the program is built without ``sync``, so each rank
+    normalizes by its own batch's statistics (and sums its own gradients
+    of them) while the gradients are still averaged over the ranks."""
+    from ppyolo_tpu_torch.ops import module
+
+    init = module.BatchNorm.__init__
+
+    def local(self, channels, sync=False):
+        init(self, channels, sync=False)
+
+    module.BatchNorm.__init__ = local
+    try:
+        yield
+    finally:
+        module.BatchNorm.__init__ = init
+
+
+@contextlib.contextmanager
+def no_grad_exchange():
+    """Data parallelism with the gradient all-reduce left out: the port's
+    ``all_reduce_mean`` hands back its inputs, so each rank steps on the
+    gradients (and reports the losses) of its own batch, while sync-BN
+    still exchanges its statistics."""
+    from ppyolo_tpu_torch.parallel import dist
+
+    mean = dist.all_reduce_mean
+    dist.all_reduce_mean = list
+    try:
+        yield
+    finally:
+        dist.all_reduce_mean = mean
+
+
 # faults on the program's answers, applied to each call's output
 SERVE = {"half_batch": lambda: half_batch, "altered_answer": AlteredAnswer}
 # faults planted inside the program for the whole run
-PROGRAM = {"no_nms_decay": no_nms_decay}
+PROGRAM = {"no_nms_decay": no_nms_decay, "no_exchange": no_exchange,
+           "no_grad_exchange": no_grad_exchange}

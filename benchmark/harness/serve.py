@@ -16,7 +16,7 @@ from typing import List
 import numpy as np
 import torch
 
-from ..reference import compare
+from ..reference import compare, for_config
 from ..work import counts
 from . import card, faults, trace, traffic, weights
 
@@ -32,13 +32,13 @@ class Spans:
             self.spans.setdefault(name, []).append((t0, t1))
 
 
-def setup(cfg_file: dict, t: dict, seed: int, device, precision: str):
+def setup(ref, cfg_file: dict, t: dict, seed: int, device, precision: str):
     """(the program's Detector, the fp32 weights, the call function, the pool)."""
     from ppyolo_tpu_torch.eval.detector import Detector
     from ppyolo_tpu_torch.models import PPYOLO
 
     cfg = cfg_file["fields"]
-    P = weights.make_state_dict(cfg, seed, device, t["size"])
+    P = weights.make_state_dict(ref, cfg, seed, device, t["size"])
     card.reset_peak(device)     # the peak from here on is the program's
     det = Detector(PPYOLO.from_config(SimpleNamespace(**cfg)), P, SimpleNamespace(**cfg),
                    target_size=t["size"], precision=precision, fold_bn=True, device=device)
@@ -77,9 +77,10 @@ def run(cfg_file: dict, t: dict, seed: int, seconds: float, traced: bool, t_star
     if chips != 1:
         raise ValueError("the serving runner runs one caller on one card")
     device = torch.device(device or "cuda")
+    ref = for_config(cfg_file)
     cfg = cfg_file["fields"]
     keep_k = cfg["nms_cfg"]["keep_top_k"]
-    det, P, call, pool = setup(cfg_file, t, seed, device,
+    det, P, call, pool = setup(ref, cfg_file, t, seed, device,
                                precision or cfg_file["precision"]["serve"])
     if fault is not None:
         served, plant = call, faults.SERVE[fault]()
@@ -115,7 +116,7 @@ def run(cfg_file: dict, t: dict, seed: int, seconds: float, traced: bool, t_star
                 call(len(outs) + i, spans)
                 spans.add("call", t0, time.time_ns())
         dev, host = trace.device_records(prof)
-        work = counts.model_flops(cfg, t["size"], t["batch"])
+        work = counts.model_flops(ref, cfg, t["size"], t["batch"])
         rec = dict(kind="serve", chips=1, device_name=card.name(device),
                    units=t["trace_units"], images=t["trace_units"] * t["batch"],
                    dev=dev, host=host, spans=spans.spans, busy_s=trace.busy_ns(dev) / 1e9,
@@ -140,7 +141,7 @@ def run(cfg_file: dict, t: dict, seed: int, seconds: float, traced: bool, t_star
             calls.append({"images": src["images"], "im_size": src["im_size"], "out": outs[i]})
     del det, call, outs
     card.release(device)
-    readings = compare.judge(cfg, P, calls, device)
+    readings = compare.judge(ref, cfg, P, calls, device)
 
     images = len(lat) * t["batch"]
     return dict(

@@ -44,7 +44,13 @@ def train_batches(t: dict, cfg: dict, seed: int, rank: int = 0) -> List[Dict[str
     ``synthetic_train_batch``): uint8 images, ``boxes`` ground-truth boxes
     (normalized xywh, centres in [0.2, 0.8], sizes in [0.05, 0.4]) in the
     first of ``max_boxes`` padded slots, random classes, score 1.  Each
-    rank draws its own."""
+    rank draws its own.
+
+    With ``exposure`` [lo, hi] each image's contrast is scaled by a gain
+    drawn from [lo, hi] and lifted by a drawn share of the room left, as
+    photos differ in exposure: without it every image, and so every rank's
+    batch, has the same statistics to a part in 10^4, and BN statistics
+    taken over one rank's images could not be told from the whole group's."""
     r = rng(seed, 100 + rank)
     b, s, m, k = t["batch"], t["size"], t["max_boxes"], t["boxes"]
     out = []
@@ -54,8 +60,13 @@ def train_batches(t: dict, cfg: dict, seed: int, rank: int = 0) -> List[Dict[str
         gt_bbox[:, :k, 2:4] = r.uniform(0.05, 0.4, (b, k, 2))
         gt_score = np.zeros((b, m), np.float32)
         gt_score[:, :k] = 1.0
-        out.append({"image": r.integers(0, 256, (b, s, s, 3), dtype=np.uint8),
-                    "gt_bbox": gt_bbox,
-                    "gt_class": r.integers(0, cfg["num_classes"], (b, m)).astype(np.int32),
-                    "gt_score": gt_score})
+        batch = {"image": r.integers(0, 256, (b, s, s, 3), dtype=np.uint8),
+                 "gt_bbox": gt_bbox,
+                 "gt_class": r.integers(0, cfg["num_classes"], (b, m)).astype(np.int32),
+                 "gt_score": gt_score}
+        if "exposure" in t:
+            gain = r.uniform(*t["exposure"], (b, 1, 1, 1))
+            lift = r.uniform(0.0, 1.0, (b, 1, 1, 1)) * 255.0 * (1.0 - gain)
+            batch["image"] = np.rint(batch["image"] * gain + lift).astype(np.uint8)
+        out.append(batch)
     return out

@@ -9,10 +9,11 @@ does not (PERF.md, "How `correct` is decided"):
   others' std, the whole filter scaled to the He init's variance
   2 / fan_in: trained filters carry a few large weights, which the int8
   path's per-filter scale pays for on every seed alike;
-- the head's output convs (which the int8 path keeps in bf16) are normal
-  with std 0.01, as RetinaNet and its successors initialize the last conv
-  of a detection head: the raw maps then have a std near 0.5, so boxes
-  come out in the anchors' range and mostly inside the image;
+- the head's output convs (``ref.OUTPUT_CONVS``, which the int8 path
+  keeps in bf16) are normal with std 0.01, as RetinaNet and its
+  successors initialize the last conv of a detection head: the raw maps
+  then have a std near 0.5, so boxes come out in the anchors' range and
+  mostly inside the image;
 - the DCN offset convs as ``chip_smoke.py`` makes them (bias N(0, 1),
   weight N(0, 1e-3)): fractional, spatially varying offsets;
 - the output convs' biases are 0;
@@ -26,7 +27,8 @@ does not (PERF.md, "How `correct` is decided"):
   residual branch's last conv is 0.3, so the shortcut carries the stream.
 
 All draws come from one ``torch.Generator`` on the card, in a few large
-calls.  The reference makes the calibration pass; nothing of the program
+calls.  The configuration's reference module (``reference/__init__.py``)
+gives the shapes and makes the calibration pass; nothing of the program
 runs.
 """
 from __future__ import annotations
@@ -35,21 +37,19 @@ from typing import Dict
 
 import torch
 
-from ..reference import model as ref
-
 OUTLIER = 20.0    # each filter's one large weight, in units of the others' std
-OUTPUT_CONVS = "head.yolo_output_convs."
 OUTPUT_STD = 0.01  # the head's output convs, as detection heads initialize them
 BN_BIAS_ACT = 1.0
 BRANCH_GAMMA = 0.3
 
 
-def make_state_dict(cfg, seed: int, device, calib_size: int) -> Dict[str, torch.Tensor]:
-    """{key: fp32 tensor on ``device``} of ``cfg``'s model from ``seed``."""
+def make_state_dict(ref, cfg, seed: int, device, calib_size: int) -> Dict[str, torch.Tensor]:
+    """{key: fp32 tensor on ``device``} of ``cfg``'s model, whose reference
+    module is ``ref``, from ``seed``."""
     shapes = ref.param_shapes(cfg)
     gen = torch.Generator(device=device).manual_seed(int(seed) % 2 ** 63)
     wkeys = [k for k in shapes if k.endswith((".conv.weight", ".conv.dcn_weight"))
-             and not k.startswith(OUTPUT_CONVS)]
+             and not k.startswith(ref.OUTPUT_CONVS)]
     sizes = [torch.Size(shapes[k]).numel() for k in wkeys]
     z = torch.randn(sum(sizes), generator=gen, device=device)
     rows = sum(shapes[k][0] for k in wkeys)
@@ -68,7 +68,7 @@ def make_state_dict(cfg, seed: int, device, calib_size: int) -> Dict[str, torch.
         scale = ref.kaiming_std(shapes[k]) * (fan / (fan - 1 + OUTLIER ** 2)) ** 0.5
         P[k] = (w * scale).view(shapes[k]).contiguous()
     del z
-    heads = [k for k in shapes if k.startswith(OUTPUT_CONVS) and k.endswith(".weight")]
+    heads = [k for k in shapes if k.startswith(ref.OUTPUT_CONVS) and k.endswith(".weight")]
     hsizes = [torch.Size(shapes[k]).numel() for k in heads]
     hz = torch.randn(sum(hsizes), generator=gen, device=device)
     for k, part in zip(heads, torch.split(hz, hsizes)):
@@ -84,11 +84,11 @@ def make_state_dict(cfg, seed: int, device, calib_size: int) -> Dict[str, torch.
                     else torch.zeros(s, device=device))
     images = torch.randint(0, 256, (2, calib_size, calib_size, 3), generator=gen,
                            device=device, dtype=torch.uint8)
-    calibrate(cfg, P, images)
+    calibrate(ref, cfg, P, images)
     return P
 
 
-def calibrate(cfg, P: Dict[str, torch.Tensor], images_u8: torch.Tensor) -> None:
+def calibrate(ref, cfg, P: Dict[str, torch.Tensor], images_u8: torch.Tensor) -> None:
     """Set every BN's statistics and affine from its input in one reference
     forward over ``images_u8`` (module docstring)."""
 

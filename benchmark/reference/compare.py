@@ -59,7 +59,7 @@ from typing import Dict, List
 
 import torch
 
-from . import model as ref
+from .common import pairwise_iou, resize_bicubic
 
 NMS_IOU = 0.3   # a row is found where a row of the same label overlaps it this much
 
@@ -117,7 +117,7 @@ def found(a: torch.Tensor, b: torch.Tensor, iou_min: float = NMS_IOU):
     if a.shape[0] == 0 or b.shape[0] == 0:
         return hit, pair
     same = a[:, None, 0] == b[None, :, 0]
-    iou = ref.pairwise_iou(a[:, 2:], b[:, 2:]) * same
+    iou = pairwise_iou(a[:, 2:], b[:, 2:]) * same
     near = ((a[:, None, 2:] - b[None, :, 2:]).abs().amax(-1) <= 1.0) & same
     iou = torch.where(near, torch.ones_like(iou), iou)
     taken = torch.zeros(b.shape[0], dtype=torch.bool, device=a.device)
@@ -146,8 +146,9 @@ def nms_rows(prog: torch.Tensor, refr: torch.Tensor, half: int):
     return miss, n, torch.cat(gaps) if gaps else prog.new_zeros(0)
 
 
-def judge(cfg, P: Dict[str, torch.Tensor], calls: List[dict], device) -> Dict[str, float]:
-    """Readings over ``calls``: each {"images": [n,S,S,3] uint8 as served
+def judge(ref, cfg, P: Dict[str, torch.Tensor], calls: List[dict], device) -> Dict[str, float]:
+    """Readings of the reference module ``ref`` (``reference/__init__.py``)
+    over ``calls``: each {"images": [n,S,S,3] uint8 as served
     (or "frames": BGR uint8 arrays and "resize": S, resized here),
     "im_size": [n,2], "out": [n, keep_top_k, 6] the program's rows}."""
     rows_all, per_image, gaps = [], [], []
@@ -156,7 +157,7 @@ def judge(cfg, P: Dict[str, torch.Tensor], calls: List[dict], device) -> Dict[st
     with torch.no_grad(), ref.fp32_exact():
         for call in calls:
             if "frames" in call:
-                imgs = torch.stack([ref.resize_bicubic(torch.from_numpy(f).to(device),
+                imgs = torch.stack([resize_bicubic(torch.from_numpy(f).to(device),
                                                        call["resize"]) for f in call["frames"]])
             else:
                 imgs = torch.from_numpy(call["images"]).to(device)

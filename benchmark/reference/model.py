@@ -15,31 +15,27 @@ arXiv:2003.10152).
 with TF32 off (``fp32_exact``).  ``mode="calibrate"`` fills the BN
 statistics while it runs (``harness/weights.py``), ``mode="train"`` uses
 batch statistics, updates the running ones and applies DropBlock from
-uniforms drawn by the caller's generator in the program's order.
+uniforms drawn by the caller's generator in the program's order, and
+with ``stats_sum`` (sync-BN over ranks) takes each BN's batch statistics
+from sums over every rank's batch.  ``targets`` and ``loss`` are the
+training step's YOLOv3 targets and loss terms (``reference/train.py``
+runs the step).  This is the reference module of every configuration
+that names none (``reference/__init__.py``).
 """
 from __future__ import annotations
 
-import contextlib
-import math
 from typing import Callable, Dict, List, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+from .common import fp32_exact, kaiming_std, pairwise_iou  # noqa: F401 (interface)
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1
 STEM = ((3, 32, 2), (32, 32, 1), (32, 64, 1))   # (cin, cout, stride) of conv1_1..conv1_3
-
-
-@contextlib.contextmanager
-def fp32_exact():
-    """fp32 matrix products and convolutions without TF32 on a card."""
-    prev = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+OUTPUT_CONVS = "head.yolo_output_convs."        # the head's output convs' key prefix
 
 
 # -- the layer list: every conv of the model, in forward order ----------------
@@ -210,14 +206,18 @@ class Net:
     mode "eval" uses the running statistics; "calibrate" sets each BN's
     running statistics from its own input first (``calibrate`` hook);
     "train" normalizes with batch statistics, updates the running ones
-    and runs DropBlock with uniforms from ``drop_uniform(shape)``."""
+    and runs DropBlock with uniforms from ``drop_uniform(shape)``; with
+    ``stats_sum`` (sync-BN), a differentiable sum over the ranks of each
+    BN's fp32 ``[Σx, Σx², count]``, the statistics are every rank's."""
 
     def __init__(self, cfg, P: Dict[str, torch.Tensor], mode: str = "eval",
                  calibrate: Optional[Callable] = None,
-                 drop_uniform: Optional[Callable] = None, quant: Optional[Callable] = None):
+                 drop_uniform: Optional[Callable] = None, quant: Optional[Callable] = None,
+                 stats_sum: Optional[Callable] = None):
         self.cfg, self.P, self.mode = cfg, P, mode
         self.q = quant or (lambda t: t)     # rounding of every conv's operands
         self.calibrate, self.drop_uniform = calibrate, drop_uniform
+        self.stats_sum = stats_sum
         self.dropblock = dict(block_size=3, keep_prob=cfg["head"].get("keep_prob", 0.9))
 
     def bn(self, key, x, spec):
@@ -227,8 +227,14 @@ class Net:
         w, b = P[f"{key}.bn.weight"], P[f"{key}.bn.bias"]
         if self.mode == "train":
             x32 = x.float()
-            m, msq = x32.mean((0, 2, 3)), x32.square().mean((0, 2, 3))
             cnt = x.shape[0] * x.shape[2] * x.shape[3]
+            if self.stats_sum is None:
+                m, msq = x32.mean((0, 2, 3)), x32.square().mean((0, 2, 3))
+            else:
+                c = x.shape[1]
+                s = self.stats_sum(torch.cat([x32.sum((0, 2, 3)), x32.square().sum((0, 2, 3)),
+                                              x32.new_full((1,), float(cnt))]))
+                m, msq, cnt = s[:c] / s[2 * c], s[c:2 * c] / s[2 * c], float(s[2 * c].detach())
             v = (msq - m.square()).clamp_min(0)
             with torch.no_grad():
                 for buf, stat in ((P[f"{key}.bn.running_mean"], m),
@@ -393,15 +399,6 @@ def _interleave(per_anchor: List[torch.Tensor], counts: List[int]) -> torch.Tens
     return torch.cat(out, 1)
 
 
-def pairwise_iou(a, b):
-    lt = torch.maximum(a[..., :, None, :2], b[..., None, :, :2])
-    rb = torch.minimum(a[..., :, None, 2:], b[..., None, :, 2:])
-    inter = (rb - lt).clamp_min(0).prod(-1)
-    area_a = (a[..., 2] - a[..., 0]) * (a[..., 3] - a[..., 1])
-    area_b = (b[..., 2] - b[..., 0]) * (b[..., 3] - b[..., 1])
-    return inter / (area_a[..., :, None] + area_b[..., None, :] - inter + 1e-9)
-
-
 def matrix_nms(boxes, scores, nms_cfg) -> torch.Tensor:
     """Matrix-NMS per image: the ``nms_top_k`` (anchor, class) pairs above
     ``score_threshold``; each score decays by min over higher-scored
@@ -448,13 +445,136 @@ def detect(cfg, P, images_u8: torch.Tensor, im_size: torch.Tensor):
     return matrix_nms(boxes, scores, cfg["nms_cfg"]), boxes, scores
 
 
-def resize_bicubic(img_bgr_u8: torch.Tensor, size: int) -> torch.Tensor:
-    """[H,W,3] BGR uint8 -> [size,size,3] RGB uint8: bicubic (a = -0.75,
-    half-pixel centres, no antialias), rounded and clamped to uint8."""
-    x = img_bgr_u8.flip(-1).permute(2, 0, 1)[None].float()
-    y = F.interpolate(x, size=(size, size), mode="bicubic", align_corners=False)
-    return y.round().clamp(0, 255).to(torch.uint8)[0].permute(1, 2, 0)
+# -- training targets and loss ----------------------------------------------------
+
+_EPS_CAP = 20.72326583694641  # -log(1e-9)
 
 
-def kaiming_std(shape) -> float:
-    return math.sqrt(2.0 / (shape[1] * shape[2] * shape[3]))
+def targets(cfg, gt_bbox: np.ndarray, gt_class: np.ndarray, gt_score: np.ndarray,
+            hw, device) -> List[torch.Tensor]:
+    """YOLOv3 targets, per level [B, gh, gw, an, 6 + C]: tx, ty, tw, th,
+    tscale, score and the multi-hot classes (best anchor by wh-IoU, the
+    later ground truth winning a cell's fields)."""
+    t = cfg["gt2YoloTarget"]
+    h, w = hw
+    nc = t["num_classes"]
+    anchors = np.asarray(t["anchors"], np.float32)
+    f = np.float32
+    out = []
+    for mask, ds in zip(t["anchor_masks"], t["downsample_ratios"]):
+        out.append(np.zeros((gt_bbox.shape[0], h // ds, w // ds, len(mask), 6 + nc), np.float32))
+    for b in range(gt_bbox.shape[0]):
+        for m in range(gt_bbox.shape[1]):
+            gx, gy, gw, gh = (f(v) for v in gt_bbox[b, m])
+            score = f(gt_score[b, m])
+            if not (gw > 0 and gh > 0 and score > 0):
+                continue
+            aw, ah = anchors[:, 0] / f(w), anchors[:, 1] / f(h)
+            inter = np.minimum(gw, aw) * np.minimum(gh, ah)
+            best = int(np.argmax(inter / np.maximum(gw * gh + aw * ah - inter, f(1e-12))))
+            for lvl, (mask, ds) in enumerate(zip(t["anchor_masks"], t["downsample_ratios"])):
+                if best not in mask:
+                    continue
+                a = mask.index(best)
+                gridh, gridw = h // ds, w // ds
+                gi = min(max(int(gx * f(gridw)), 0), gridw - 1)
+                gj = min(max(int(gy * f(gridh)), 0), gridh - 1)
+                row = out[lvl][b, gj, gi, a]
+                row[:6] = [gx * f(gridw) - f(gi), gy * f(gridh) - f(gj),
+                           np.log(gw * f(w) / anchors[best, 0]),
+                           np.log(gh * f(h) / anchors[best, 1]), f(2.0) - gw * gh, score]
+                c = int(gt_class[b, m])
+                if 0 <= c < nc:
+                    row[6 + c] = 1.0
+    return [torch.from_numpy(o).to(device) for o in out]
+
+
+def _bce_logits(logit, target):
+    pos = torch.clamp_max(F.softplus(-logit), _EPS_CAP)
+    neg = torch.clamp_max(F.softplus(logit), _EPS_CAP)
+    return target * pos + (1.0 - target) * neg
+
+
+def _decode(dx, dy, dw, dh, anchors_wh, downsample, sxy, is_gt):
+    s = dx.shape[1]
+    gx = torch.arange(s, dtype=dx.dtype, device=dx.device)[None, None, :, None]
+    gy = torch.arange(s, dtype=dx.dtype, device=dx.device)[None, :, None, None]
+    if is_gt:
+        cx, cy = (dx + gx) / s, (dy + gy) / s
+    else:
+        sx, sy = torch.sigmoid(dx), torch.sigmoid(dy)
+        if abs(sxy - 1.0) > 1e-10:
+            sx, sy = sxy * sx - 0.5 * (sxy - 1.0), sxy * sy - 0.5 * (sxy - 1.0)
+        cx, cy = (sx + gx) / s, (sy + gy) / s
+    pw = torch.exp(dw) * anchors_wh[:, 0] / (s * downsample)
+    ph = torch.exp(dh) * anchors_wh[:, 1] / (s * downsample)
+    out = (cx - 0.5 * pw, cy - 0.5 * ph, cx + 0.5 * pw, cy + 0.5 * ph)
+    return tuple(v.detach() for v in out) if is_gt else out
+
+
+def _iou(p, g, eps=1e-10):
+    x1, y1, x2, y2 = p
+    x1g, y1g, x2g, y2g = g
+    x2, y2 = torch.maximum(x1, x2), torch.maximum(y1, y2)
+    inter = (torch.minimum(x2, x2g) - torch.maximum(x1, x1g)).clamp_min(0) * \
+        (torch.minimum(y2, y2g) - torch.maximum(y1, y1g)).clamp_min(0)
+    return inter / ((x2 - x1) * (y2 - y1) + (x2g - x1g) * (y2g - y1g) - inter + eps)
+
+
+def loss(cfg, outputs: List[torch.Tensor], tgts: List[torch.Tensor],
+         gt_box: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The fine-grained YOLOv3 loss terms (fp32), each summed over cells and
+    averaged over images: Grid-Sensitive L1 xy, L1 wh, IoU, IoU-aware
+    (soft-weight form), objectness with the ignore mask, per-class BCE; a
+    frozen copy of the program's plain formulas."""
+    h = cfg["head"]
+    nc = h["num_classes"]
+    sxy = cfg["yolo_loss"]["scale_x_y"]
+    if abs(sxy - 1.0) < 1e-10:
+        raise NotImplementedError("the BCE xy loss of scale_x_y == 1")
+    iou_w = cfg["iou_loss"]["loss_weight"] if cfg.get("iou_loss_type") else None
+    aware_w = cfg["iou_aware_loss"]["loss_weight"] if cfg.get("iou_aware_loss_type") else None
+    ignore = cfg["yolo_loss"]["ignore_thresh"]
+    out: Dict[str, torch.Tensor] = {}
+
+    def add(k, v):
+        out[k] = out[k] + v if k in out else v
+
+    g = gt_box.float()
+    gt = torch.stack([g[..., 0] - g[..., 2] / 2, g[..., 1] - g[..., 3] / 2,
+                      g[..., 0] + g[..., 2] / 2, g[..., 1] + g[..., 3] / 2], -1)
+    for i, (o, t) in enumerate(zip(outputs, tgts)):
+        o = o.float().permute(0, 2, 3, 1)
+        mask = h["anchor_masks"][i]
+        an = len(mask)
+        anc = torch.tensor([h["anchors"][a] for a in mask], dtype=torch.float32, device=o.device)
+        ds = h["downsample"][i]
+        n, s = o.shape[:2]
+        ioup = None
+        if aware_w is not None:
+            ioup, o = o[..., :an], o[..., an:]
+        o = o.reshape(n, s, s, an, 5 + nc)
+        x, y, w, hh, obj = o.unbind(-1)[:5]
+        cls = o[..., 5:]
+        tx, ty, tw, th, tscale, tobj = t[..., :6].unbind(-1)
+        wgt = tscale * tobj
+        dx = sxy * torch.sigmoid(x) - 0.5 * (sxy - 1.0)
+        dy = sxy * torch.sigmoid(y) - 0.5 * (sxy - 1.0)
+        add("loss_xy", ((dx - tx).abs() * wgt + (dy - ty).abs() * wgt).sum((1, 2, 3)).mean())
+        add("loss_wh", ((w - tw).abs() * wgt + (hh - th).abs() * wgt).sum((1, 2, 3)).mean())
+        pred = _decode(x, y, w, hh, anc, ds, sxy, False)
+        tbox = _decode(tx, ty, tw, th, anc, ds, sxy, True)
+        iouk = _iou(pred, tbox)
+        if iou_w is not None:
+            add("loss_iou", ((1 - iouk * iouk) * iou_w * wgt).sum((1, 2, 3)).mean())
+        if aware_w is not None:
+            la = iouk.detach() * torch.clamp_max(F.softplus(-ioup), _EPS_CAP) * aware_w * tobj
+            add("loss_iou_aware", la.sum((1, 2, 3)).mean())
+        pb = torch.stack(pred, -1).reshape(n, s * s * an, 4).detach()
+        max_iou = pairwise_iou(pb, gt).amax(-1).reshape(n, s, s, an)
+        noobj = (1.0 - (tobj > 0).float()) * (max_iou <= ignore).float()
+        pos = (tobj * torch.clamp_max(F.softplus(-obj), _EPS_CAP)).sum((1, 2, 3))
+        neg = (noobj * torch.clamp_max(F.softplus(obj), _EPS_CAP)).sum((1, 2, 3))
+        add("loss_obj", (pos + neg).mean())
+        add("loss_cls", (_bce_logits(cls, t[..., 6:]).sum(-1) * tobj).sum((1, 2, 3)).mean())
+    return out

@@ -4,7 +4,8 @@
 
 Everything is found by name: the cell in ``benchmark/workloads/<cell>.json``
 (its configuration, traffic, chips and the limits of its output check),
-the configuration in ``benchmark/configs/<config>.json``, the traffic mix
+the configuration in ``benchmark/configs/<config>.json`` (with the plain
+reference module it names, ``benchmark/reference/<name>.py``), the traffic mix
 in ``benchmark/traffic/<traffic>.json`` (whose ``runner`` names the module
 ``benchmark/harness/<runner>.py`` that drives the program), and with
 ``--trace 1`` every per-layer metric in ``benchmark/metrics/<metric>.py``
@@ -56,6 +57,16 @@ def readers(directory: Path = HERE / "metrics") -> dict:
 
 def forbidden_modules() -> list:
     return sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN))
+
+
+def loaded_jax(who: str = "the run") -> bool:
+    """Whether this process holds JAX or the JAX package; names them on
+    stderr if it does."""
+    bad = forbidden_modules()
+    if bad:
+        print(f"benchmark: {who} loaded {bad}; the port must not use JAX or the JAX "
+              "package", file=sys.stderr, flush=True)
+    return bool(bad)
 
 
 def cache_env() -> None:
@@ -118,10 +129,13 @@ def main(argv=None) -> int:
     cfg_file = load_json("configs", cell["config"])
     tr = load_json("traffic", cell["traffic"])
     cache_env()
+    sys.path.insert(0, str(ROOT))
+    from benchmark.reference import for_config
+
+    for_config(cfg_file)    # a configuration whose reference is missing ends here
     if not device_ok(int(cell["chips"])):
         return 2
     quiet_host()
-    sys.path.insert(0, str(ROOT))
     if not (ROOT / "ppyolo_tpu_torch").is_dir():
         print("benchmark: the program under test (ppyolo_tpu_torch/) is not in this checkout",
               file=sys.stderr)
@@ -133,10 +147,7 @@ def main(argv=None) -> int:
 
 
 def report(out: dict, cell: dict, args, names: set = None) -> int:
-    bad = forbidden_modules()
-    if bad:
-        print(f"benchmark: the run loaded {bad}; the port must not use JAX or the JAX "
-              "package", file=sys.stderr)
+    if loaded_jax():
         return 4
     ch = checks(out["readings"], cell["limits"])
     correct = passed(ch) and out["failed"] == 0
@@ -159,8 +170,8 @@ def report(out: dict, cell: dict, args, names: set = None) -> int:
     if args.trace:
         from benchmark.harness import trace
 
-        device["busy_s"] = rec["busy_s"]
-        device["window_s"] = rec["window_s"]
+        device["busy_s"] = rec.get("chips_busy_s", rec["busy_s"])    # over the cards used
+        device["window_s"] = rec.get("chips_window_s", rec["window_s"])
         result["breakdown"] = trace.breakdown(rec["dev"], rec["spans"], rec["host"])
     result["checks"] = ch
     print(json.dumps(result))

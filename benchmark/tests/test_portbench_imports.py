@@ -18,7 +18,7 @@ def loaded(code: str) -> set:
 def test_the_benchmark_loads_no_jax_and_no_jax_package():
     mods = loaded(
         "from benchmark import run\n"
-        "from benchmark.harness import serve, train, trace, traffic, weights, card, faults\n"
+        "from benchmark.harness import serve, train, trace, traffic, weights, card, faults, ranks\n"
         "from benchmark.tools import control\n"
         "from benchmark.work import counts\n"
         "run.readers()\n"
@@ -29,7 +29,7 @@ def test_the_benchmark_loads_no_jax_and_no_jax_package():
 
 
 def test_the_reference_imports_nothing_of_the_program():
-    mods = loaded("from benchmark.reference import model, train, compare\n"
+    mods = loaded("from benchmark.reference import model, train, compare, common\n"
                   "from benchmark.work import counts")
     assert not mods & (FORBIDDEN | {"ppyolo_tpu_torch"})
 

@@ -36,10 +36,18 @@ def test_p95_is_over_all_calls():
 
 @pytest.mark.parametrize("name,kind", [("dcn_fwd_roofline.serve", "serve"),
                                        ("dcn_bwd_roofline.train", "train"),
-                                       ("preprocess_ms.serve", "serve")])
+                                       ("preprocess_ms.serve", "serve"),
+                                       ("collective_ms.train", "train")])
 def test_a_reader_whose_records_are_absent_returns_none(name, kind):
     rec = record(kind=kind, dev=[("at::native::elementwise_kernel", 0, MS)])
     assert run.readers()[name].read(rec) is None
+
+
+def test_collectives_count_only_the_exchange_no_other_record_covers():
+    dev = [("ncclDevKernel_AllReduce_Sum_f32", 0, 4 * MS), ("sm90_xmma_gemm", 1 * MS, 2 * MS),
+           ("at::native::add", 3 * MS, 6 * MS), ("ncclDevKernel_AllReduce_Sum_f32", 7 * MS, 8 * MS)]
+    rec = record(kind="train", dev=dev, steps=2)
+    assert run.readers()["collective_ms.train"].read(rec) == pytest.approx(1.5)   # 3 ms, 2 steps
 
 
 def test_rooflines_and_mfu_read_from_their_kernels():

@@ -10,6 +10,7 @@ import torch
 
 from benchmark.harness import weights
 from benchmark.reference import model as ref
+from benchmark.reference.common import resize_bicubic
 from benchmark.reference import train as reftrain
 
 HERE = Path(__file__).resolve().parent
@@ -41,7 +42,7 @@ def test_forward_and_detections_match_the_port_in_fp32(name, size):
     from ppyolo_tpu_torch.eval.detector import Detector
 
     cfg = fields(name)
-    P = weights.make_state_dict(cfg, 2 ** 33 + 1, "cpu", size)
+    P = weights.make_state_dict(ref, cfg, 2 ** 33 + 1, "cpu", size)
     img = torch.randint(0, 256, (2, size, size, 3), generator=torch.Generator().manual_seed(3),
                         dtype=torch.uint8)
     sizes = torch.tensor([[480.0, 640.0], [375.0, 500.0]])
@@ -62,7 +63,7 @@ def test_resize_matches_cv2_to_one_level():
     r = np.random.default_rng(0)
     f = r.integers(0, 256, (375, 500, 3), dtype=np.uint8)
     want = cv2.resize(cv2.cvtColor(f, cv2.COLOR_BGR2RGB), (416, 416), interpolation=2)
-    got = ref.resize_bicubic(torch.from_numpy(f), 416).numpy()
+    got = resize_bicubic(torch.from_numpy(f), 416).numpy()
     assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
 
 
@@ -78,7 +79,7 @@ def test_train_steps_match_the_port_in_fp32():
     cfg_file = json.loads((HERE / "tiny.json").read_text())
     t = {"batch": 2, "size": 64, "pool": 3, "max_boxes": 50, "boxes": 4, "freeze_at": 0}
     cfg = drv.train_cfg(cfg_file, t)
-    P = weights.make_state_dict(cfg, 99, "cpu", 64)
+    P = weights.make_state_dict(ref, cfg, 99, "cpu", 64)
     pool = traffic.train_batches(t, cfg, 99)
     model = port_model(cfg)
     model.load_state_dict(P)
@@ -98,7 +99,8 @@ def test_train_steps_match_the_port_in_fp32():
              if k.endswith(("running_mean", "running_var"))}
     prog.update(step=drv.norms_from(P, state.trainable), ema=drv.norms_from(P, state.ema),
                 bn=drv.norms_from(P, stats))
-    refr = reftrain.steps(cfg, P, pool, drop_seed=drv.drop_seed(99), device=torch.device("cpu"))
+    refr = reftrain.steps(ref, cfg, P, pool, drop_seed=drv.drop_seed(99),
+                          device=torch.device("cpu"))
     r = reftrain.readings(prog, refr)
     assert all(abs(a - b) < 1e-5 * b for a, b in zip(prog["loss"], refr["loss"]))
     assert refr["ema"] and refr["bn"]

@@ -4,6 +4,7 @@ from pathlib import Path
 
 import pytest
 
+from benchmark.reference import model as ref
 from benchmark.work import counts
 
 CONFIGS = Path(__file__).resolve().parents[1] / "configs"
@@ -19,13 +20,13 @@ def test_ppyolo_2x_forward_count_agrees_with_the_ports():
     plus K1's formula).  The reference counts the CoordConv channels' FLOPs
     for every image, where the served head computes their term once per
     grid for the whole batch, so it reads ~0.1% more."""
-    w = counts.model_flops(fields("ppyolo_2x"), 608, 8)
+    w = counts.model_flops(ref, fields("ppyolo_2x"), 608, 8)
     assert w["flops"] == pytest.approx(815.2e9, rel=2e-3)
     assert w["flops"] >= 815.2e9
 
 
 def test_kernel_bounds_are_chip_smokes():
-    w = counts.model_flops(fields("ppyolo_2x"), 608, 8)
+    w = counts.model_flops(ref, fields("ppyolo_2x"), 608, 8)
     assert len(w["dcn_layers"]) == 3
     k1 = sum(counts.dcn_fwd_bound(layer, H100) for layer in w["dcn_layers"])
     k3 = sum(counts.dcn_bwd_bound(layer, H100) for layer in w["dcn_layers"])
@@ -35,6 +36,6 @@ def test_kernel_bounds_are_chip_smokes():
 
 def test_r18vd_has_no_dcn_and_training_counts_more():
     f = fields("ppyolo_r18vd")
-    fwd = counts.model_flops(f, 416, 1)
+    fwd = counts.model_flops(ref, f, 416, 1)
     assert fwd["dcn_layers"] == []
-    assert counts.model_flops(f, 416, 1, train=True)["flops"] > 2 * fwd["flops"]
+    assert counts.model_flops(ref, f, 416, 1, train=True)["flops"] > 2 * fwd["flops"]

@@ -14,8 +14,10 @@ place (for training, ``bf16``: the reference rounded as the program's
 bf16 step is, the witness of what bf16 rounding does to each reading).
 ``--fault`` plants a fault: for serving one of ``harness/faults.py``'s,
 for training ``half_batch`` or ``ema_unchanged`` (in the reference put in
-the program's place).  One JSON line per seed.  Not run by the benchmark
-itself.
+the program's place) or, on ranks, ``no_exchange`` or
+``no_grad_exchange`` (in the program).  One
+JSON line per seed; a cell on more than one card runs its ranks anew for
+each.  Not run by the benchmark itself.
 """
 from __future__ import annotations
 

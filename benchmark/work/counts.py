@@ -1,14 +1,15 @@
 """Work counts: model FLOPs from the plain reference, the hand-written
 kernels' operation and byte counts, and the card's peaks.
 
-``model_flops`` runs the reference (``reference/model.py``) on meta
-tensors under ``torch.utils.flop_counter.FlopCounterMode`` at a cell's
-shapes: the matrix products and convolutions of the published
+``model_flops`` runs a configuration's reference module
+(``reference/__init__.py``) on meta tensors under
+``torch.utils.flop_counter.FlopCounterMode`` at a cell's shapes: the
+matrix products and convolutions of the published
 architecture (elementwise work counts nothing), the same for any
 implementation of it.  With ``train`` it counts the forward and the
 backward to every trainable leaf and the input-free activations.  The
 DCN layers met on the way are recorded with their shapes, for the
-kernels' bounds.
+kernels' bounds (where the module has ``deform_conv``).
 
 ``dcn_fwd_bound`` and ``dcn_bwd_bound`` are frozen copies of
 ``chip_smoke.py``'s K1 and K3 counts: K1 does 2 P k^2 C Co operations
@@ -48,19 +49,18 @@ def dcn_bwd_bound(layer: dict, pk: Dict[str, float]) -> float:
     return max(ops / pk["fp32"], nbytes / pk["bytes"])
 
 
-def model_flops(cfg, size: int, batch: int = 1, train: bool = False) -> dict:
-    """{"flops": per batch, "dcn_layers": [shape dicts]} of the reference at
-    ``batch`` x ``size`` x ``size`` (forward, or forward + backward)."""
+def model_flops(ref, cfg, size: int, batch: int = 1, train: bool = False) -> dict:
+    """{"flops": per batch, "dcn_layers": [shape dicts]} of the reference
+    module ``ref`` at ``batch`` x ``size`` x ``size`` (forward, or forward
+    + backward)."""
     import torch
     from torch.utils.flop_counter import FlopCounterMode
-
-    from ..reference import model as ref
 
     dev = torch.device("meta")
     P = {k: torch.zeros(s, device=dev) for k, s in ref.param_shapes(cfg).items()}
     trainable = [v for k, v in P.items() if not k.endswith(("running_mean", "running_var"))]
     layers: List[dict] = []
-    deform = ref.deform_conv
+    deform = getattr(ref, "deform_conv", None)
 
     def recording(x, weight, om, stride, pad):
         n, c, h, w = x.shape
@@ -68,7 +68,8 @@ def model_flops(cfg, size: int, batch: int = 1, train: bool = False) -> dict:
                            ow=om.shape[3], k2=weight.shape[2] * weight.shape[3]))
         return deform(x, weight, om, stride, pad)
 
-    ref.deform_conv = recording
+    if deform is not None:
+        ref.deform_conv = recording
     try:
         with FlopCounterMode(display=False) as fc:
             if train:
@@ -82,5 +83,6 @@ def model_flops(cfg, size: int, batch: int = 1, train: bool = False) -> dict:
                 with torch.no_grad():
                     ref.Net(cfg, P)(torch.zeros(batch, 3, size, size, device=dev))
     finally:
-        ref.deform_conv = deform
+        if deform is not None:
+            ref.deform_conv = deform
     return {"flops": float(fc.get_total_flops()), "dcn_layers": layers}
